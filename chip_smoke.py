@@ -3,16 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `multiview_motion_capture_torch/csrc/`,
-holds each against its plain torch version on the card (they must agree
-bit for bit), drives the main path (`pipeline.run` on SHELF_BENCH over a
-300-frame, 4-person, 5-camera synthetic scene) on the card with the launch
-counters set to 0 just before, checks its quality against the JAX package's
-numbers for that scene and its per-frame decisions against the port's CPU
-run, profiles a window of frames, and prints one JSON line per phase.  The
-last lines are the card's `nvidia-smi` name and power limit, the kernel
-table and `{"ok": true, "device": {...}}`.  Any failure exits non-zero
-without the final line.  It imports nothing of JAX.
+Builds the port's CUDA kernels from `multiview_motion_capture_torch/csrc/`
+(one nvcc per source, all started together) and holds each against its
+plain torch version on the card, then drives the port's paths on the card,
+each with the launch counters set to 0 just before it and read just after:
+
+- `slice`: `pipeline.run` on SHELF_BENCH over a 300-frame, 4-person,
+  5-camera synthetic scene (kernels B1 ALS, B2 Gauss-Jordan), its quality
+  against the JAX package's numbers for that scene, a card-vs-CPU decision
+  check (`parity`) and a profiler window (`profile`);
+- `wide`: `pipeline.run` on `PipelineConfig.wide(64)` over a 60-frame,
+  10-person, 64-camera scene (two camera clusters: kernel B3 batched ALS,
+  B2), its quality and per-frame decisions against the JAX package's run
+  of that scene, `wide_fused` (the same with ik_solver="gj_fused": kernel
+  B4), `wide_parity` (card vs CPU decisions) and `wide_profile`.
+
+It prints one JSON line per phase with its wall seconds.  The last lines
+are the card's `nvidia-smi` name and power limit, the kernel table and
+`{"ok": true, "device": {...}}`.  Any failure exits non-zero without the
+final line.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -45,15 +54,50 @@ REPROJ_TOL_PX = 0.05
 # reprojection by about 0.1 px; a wrong pose or association moves it by
 # whole pixels
 REPROJ_GATE_PX = 0.25
-# card vs CPU poses, equal decisions given: the LM's accept/reject steps
-# amplify rounding on the early two-view tracks, where one unit in the last
-# place of the normal matrix moves a joint by millimetres
-# (scripts/torch_parity_study.py, "ik_sensitivity"); a wrong solve or a
-# wrong observation moves it by decimetres
+# card vs CPU poses, equal decisions given.  Both devices form the math
+# between the kernels in f64 and round once (utils/precision.WORK_DTYPE), so
+# they hand the kernels the same f32 inputs and the poses come out equal;
+# the printed error says so.  The gate is what a real fault does: the LM's
+# accept/reject steps amplify one unit in the last place of the normal
+# matrix to millimetres on early two-view tracks
+# (scripts/torch_parity_study.py, "ik_sensitivity"), a wrong solve or a
+# wrong observation moves a joint by decimetres
 POSE_TOL_M = 1e-2
 # kernel vs plain Gauss-Jordan: the kernel rounds as the plain version does
 GJ_REL_TOL = 1e-5
 PARITY_FRAMES = 60
+
+# the wide-rig scene of scripts/bench_scaled.py (64 cameras x 10 people)
+WIDE_SCENE = dict(n_frames=60, n_people=10, n_views=64, seed=0, noise_px=1.0,
+                  drop_prob=0.05)
+# JAX package on the CPU, same scene and PipelineConfig.wide(64,
+# max_frames=None) through pipeline.run with use_ik=True; per-frame ALS
+# iterations (summed over the two clusters) and decision digests
+# (eval.decision_digests) of its run_offline
+# (scripts/torch_parity_study.py --study wide)
+WIDE_REFERENCE = dict(
+    n_tracklets=59, top_lengths=[59, 59, 59, 38, 35, 34, 30, 24, 22, 12],
+    mean_reproj_px=15.936715358706099, median_reproj_px=1.9158019333922693,
+    n_degenerate_poses=0,
+    als_iters=[
+        200, 200, 187, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200,
+        200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200,
+        200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200,
+        200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200, 200],
+    decision_digests=[
+        "173a21bf0f", "0e502e6d69", "1e233c3b77", "518e8adb1c", "379dbb8c06", "435d66b70a",
+        "1db3a441e9", "a5977fba0f", "0a7c5ae99a", "f61e985460", "89e31c9851", "92659e90c3",
+        "42b07bb541", "293261129a", "9260532990", "7eacc51df4", "6ec45e7dd6", "ade4b40ed7",
+        "4ba0547805", "453e106e71", "3b5d98fa5f", "8a52d113ac", "cf48e75234", "d9c4ec476a",
+        "d86dc9012c", "ca75b51315", "67d5368077", "587b61be60", "2a3d6218e7", "f352c7bb8f",
+        "7d17167b0e", "612882277a", "dee8d6cf73", "f0f94046d7", "cffbd60ec4", "94c3709a4f",
+        "0f62ce10bd", "2572955d23", "0334fb10e3", "9c2969c39a", "321d9a680d", "457c022d8a",
+        "65428536f0", "8c211629b2", "d474b1b986", "d02c4c7564", "a885beb87f", "e54b1e02e5",
+        "a99bea6d1e", "1c5310edfd", "44a899fd76", "22b8a005fb", "8b2bb9a886", "f631db586d",
+        "68d9b6ce82", "f60b6f6f48", "ea92403c20", "b722c2a047", "4569ae0023", "9ede1e1cf5"],
+)
+WIDE_PARITY_FRAMES = 20
+WIDE_PROFILE_FRAMES = 10
 
 
 def emit(obj) -> None:
@@ -123,17 +167,59 @@ def als_problem(seed: int, sizes, n_people: int):
     return 0.5 * (W + W.T)
 
 
+# Operation counts for the bounds: the least work of the function each
+# kernel computes, not the work of the kernel's algorithm.  A symmetric
+# product F F^T counts its r (r + 1) / 2 distinct entries, and a solve of an
+# SPD system of side d with m right-hand sides counts a Cholesky factor
+# (d^3 / 3) and two triangular solves per right-hand side (2 d^2 m), where
+# the kernels run a no-pivot Gauss-Jordan (about 2 d^2 (d + m)).
+
+def spd_solve_ops(d: int, m: int) -> float:
+    return d ** 3 / 3 + 2 * d * d * m
+
+
 def als_ops(n: int, r: int, iters: int) -> float:
     """f32 operations of the ALS solve at (n, rank) over `iters` iterations:
-    the X step, two Gram + right-hand-side products, two Gauss-Jordan
-    eliminations, the A B^T product and the projection/residual pass."""
-    per_iter = (4 * n * n + 4 * r * (r + n) * n + 2 * r * (r + n) * (2 * r - 1)
-                + 2 * n * n * r + 15 * n * n)
+    the X step (4 per entry), the two ridge solves (the symmetric Gram
+    matrix, the r x n right-hand side F X, the SPD solve with n right-hand
+    sides), the A B^T product and the projection/residual pass (15 per
+    entry); then the symmetrization and the binarization."""
+    ridge = r * (r + 1) * n + 2 * r * n * n + spd_solve_ops(r, n)
+    per_iter = 4 * n * n + 2 * ridge + 2 * n * n * r + 15 * n * n
     return float(iters * per_iter + 4 * n * n)
 
 
 def gj_ops(T: int, D: int) -> float:
-    return float(T * D * ((D + 1) + 2 * (D - 1) * (D + 1)))
+    """T SPD solves of side D with one right-hand side."""
+    return float(T * spd_solve_ops(D, 1))
+
+
+def fused_ops(T: int, R: int, D: int) -> float:
+    """Per slot: the D (D + 1) / 2 distinct entries of the symmetric J^T J
+    and the D entries of J^T r, each R products and R sums; the trace, the
+    ridge and the diagonal shift; then the SPD solve."""
+    return float(T * (2 * R * (D * (D + 1) // 2 + D) + 3 * D)) + gj_ops(T, D)
+
+
+def run_phase(name: str, fn, *args):
+    """Run one phase and print its wall seconds on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit({"phase": name, "wall_s": time.perf_counter() - t0})
+    return out
+
+
+def zero_launch_counts() -> None:
+    from multiview_motion_capture_torch.ops import cuda_lib
+
+    for k in cuda_lib.ALL_KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    from multiview_motion_capture_torch.ops import cuda_lib
+
+    return {k.name: k.launches for k in cuda_lib.ALL_KERNELS}
 
 
 def phase_env(torch):
@@ -154,9 +240,9 @@ def phase_build():
 
     t0 = time.perf_counter()
     seconds = cuda_lib.build_all()
-    ptxas = {k.name: [ln for ln in k.build_log.splitlines()
-                      if "registers" in ln or "spill" in ln]
-             for k in cuda_lib.ALL_KERNELS}
+    ptxas = {lib.name: [ln for ln in lib.build_log.splitlines()
+                        if "registers" in ln or "spill" in ln]
+             for lib in cuda_lib.ALL_LIBRARIES}
     emit({"phase": "build", "seconds": seconds,
           "wall_s": time.perf_counter() - t0, "ptxas": ptxas})
 
@@ -213,24 +299,140 @@ def als_frame0_case(torch, dev, seq, cfg):
                      max_iter=cfg.als_max_iter, stable_iters=cfg.als_stable_iters)
 
 
-def check_gj(torch, dev, T, D, seed):
+def check_gj(torch, dev, T, D, seed, one_program=True):
     from multiview_motion_capture_torch.ops import solve_kernel
 
     g = torch.Generator(device="cpu").manual_seed(seed)
     M = torch.randn(T, D, 2 * D, generator=g)
     A = (M @ M.transpose(1, 2) / (2 * D) + 1e-3 * torch.eye(D)).to(dev).contiguous()
     b = torch.randn(T, D, generator=g).to(dev)
-    xk = solve_kernel.batched_spd_solve(A, b)
+    xk = solve_kernel.batched_spd_solve(A, b, one_program=one_program)
     xp = solve_kernel.gauss_jordan_plain(A, b)
     torch.cuda.synchronize()
     err = float((xk - xp).abs().max())
     rel = err / float(xp.abs().max())
-    res = {"T": T, "D": D, "max_abs_err": err, "rel_err": rel, "rel_tol": GJ_REL_TOL}
-    res["ms"] = cuda_time_ms(lambda: solve_kernel.batched_spd_solve(A, b), reps=50)
+    res = {"T": T, "D": D, "one_program": one_program, "max_abs_err": err,
+           "bit_equal": err == 0.0, "rel_err": rel, "rel_tol": GJ_REL_TOL}
+    res["ms"] = cuda_time_ms(
+        lambda: solve_kernel.batched_spd_solve(A, b, one_program=one_program), reps=50)
     res["plain_ms"] = cuda_time_ms(lambda: solve_kernel.gauss_jordan_plain(A, b), reps=5)
     res["library_ms"] = cuda_time_ms(lambda: torch.linalg.solve(A, b), reps=50)
     n_bytes = T * (D * D + D) * 4 + T * D * 4
     res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, gj_ops(T, D))
+    res["ok"] = rel <= GJ_REL_TOL
+    return res
+
+
+def check_als_batched(torch, name, W, mask, init, max_iter, stable_iters, timing_reps=3):
+    """The batched ALS kernel (B3) against its plain version (the plain solve
+    of each problem) and against one single-problem kernel launch (B1) per
+    problem: x_bin and every problem's iteration count must be equal."""
+    import numpy as np
+
+    from multiview_motion_capture_torch.ops import als_kernel, association
+
+    C, n, _ = W.shape
+    rank = init.shape[1]
+    kw = dict(alpha=50.0, beta=0.1, mu0=64.0, tol=1e-4, max_iter=max_iter,
+              stable_iters=stable_iters)
+
+    def plain():
+        return [association.match_als(W[c], mask, init, **kw) for c in range(C)]
+
+    def solos():
+        return [als_kernel.match_als(W[c], mask, init, **kw) for c in range(C)]
+
+    k = als_kernel.match_als_batched(W, mask, init, **kw)
+    p, s1 = plain(), solos()
+    torch.cuda.synchronize()
+    xk = k.x_bin.cpu().numpy()
+    xp = np.stack([r.x_bin.cpu().numpy() for r in p])
+    xs = np.stack([r.x_bin.cpu().numpy() for r in s1])
+    ik = k.n_iters.cpu().tolist()
+    ip = [int(r.n_iters) for r in p]
+    i1 = [int(r.n_iters) for r in s1]
+    res = {"case": name, "C": C, "n": n, "rank": rank, "iters_kernel": ik,
+           "iters_plain": ip, "iters_solo_b1": i1,
+           "x_bin_mismatches_plain": int((xk != xp).sum()),
+           "x_bin_mismatches_solo_b1": int((xk != xs).sum()),
+           "max_abs_err": float(np.abs(xk.astype(np.float32) - xp.astype(np.float32)).max())}
+    res["ms"] = cuda_time_ms(lambda: als_kernel.match_als_batched(W, mask, init, **kw),
+                             reps=timing_reps, rounds=3)
+    res["plain_ms"] = host_time_ms(plain, rounds=1)
+    # yardstick: the C problems as C sequential single-problem launches
+    res["yardstick"] = "C sequential B1 launches"
+    res["yardstick_ms"] = cuda_time_ms(solos, reps=timing_reps, rounds=3)
+    # each W and x_bin once, the shared mask and init once, the iterations
+    n_bytes = C * (n * n * 4 + n * n + 4) + n * n + n * rank * 4
+    res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, sum(als_ops(n, rank, i) for i in ik))
+    res["ok"] = (res["x_bin_mismatches_plain"] == 0 and res["x_bin_mismatches_solo_b1"] == 0
+                 and ik == ip == i1)
+    return res
+
+
+def wide_cluster_problems(torch, dev, n_views, clusters, seed):
+    """The per-cluster ALS problems of a wide rig's first frame: the
+    spatial-only similarity of each interleaved cluster (no live track
+    yet), as the wide path builds them."""
+    from multiview_motion_capture_torch import tracker
+    from multiview_motion_capture_torch.config import PipelineConfig
+    from multiview_motion_capture_torch.data.ingest import filter_bad_poses
+    from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
+
+    cfg = PipelineConfig.wide(n_views, assoc_clusters=clusters, max_frames=None)
+    scene = dict(WIDE_SCENE, n_views=n_views, seed=seed)
+    seq = synthetic_sequence(cfg=cfg, **scene)
+    b = filter_bad_poses(seq.batch, cfg)
+    ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=dev)
+    kps = torch.as_tensor(b.kps[0], device=dev)
+    valid = torch.as_tensor(b.valid[0], device=dev)
+    W = torch.stack([tracker._spatial_similarity(ctx, kps, valid, view_idx=cl.views,
+                                                 view_valid=cl.view_valid)[0]
+                     for cl in ctx.clusters]).contiguous()
+    return W, ctx.cluster_diag_mask, ctx.cluster_init_A, cfg
+
+
+def check_fused(torch, dev, T, R, D, seed):
+    """The fused normal-equation kernel (B4) against its plain version on
+    one LM iteration's shapes (pose-only stage: the side-length columns
+    frozen), and the gj route on the same systems as its yardstick."""
+    import numpy as np
+
+    from multiview_motion_capture_torch.ops import ik, solve_kernel
+
+    rng = np.random.RandomState(seed)
+    free = torch.as_tensor(ik._FREE_POSE, device=dev)
+    J = torch.as_tensor(rng.randn(T, R, D).astype(np.float32), device=dev) * free
+    r = torch.as_tensor(rng.randn(T, R).astype(np.float32), device=dev)
+    lam = torch.as_tensor(rng.uniform(1e-3, 1.0, T).astype(np.float32), device=dev)
+    frozen = (1.0 - free).contiguous()
+    Jaug = torch.cat([J, r[:, :, None]], dim=2).contiguous()
+    xk = solve_kernel.fused_normal_solve(Jaug, lam, frozen)
+    xp = solve_kernel.fused_normal_plain(Jaug, lam, frozen)
+    torch.cuda.synchronize()
+    err = float((xk - xp).abs().max())
+    rel = err / float(xp.abs().max())
+    eye = torch.eye(D, device=dev)
+
+    def gj_route():
+        JtJ = torch.einsum("trd,tre->tde", J, J)
+        g = torch.einsum("trd,tr->td", J, r)
+        ridge = 1e-6 * (torch.diagonal(JtJ, dim1=1, dim2=2).sum(-1) / D) + 1e-6
+        A = JtJ + (lam + ridge)[:, None, None] * eye + torch.diag(frozen)[None]
+        return solve_kernel.batched_spd_solve(A.contiguous(), g.contiguous())
+
+    xg = gj_route()
+    res = {"T": T, "R": R, "D": D, "max_abs_err": err, "bit_equal": err == 0.0,
+           "rel_err": rel, "rel_tol": GJ_REL_TOL,
+           "gj_route_rel_diff": float((xg - xk).abs().max() / xk.abs().max())}
+    res["ms"] = cuda_time_ms(lambda: solve_kernel.fused_normal_solve(Jaug, lam, frozen),
+                             reps=50)
+    res["plain_ms"] = cuda_time_ms(lambda: solve_kernel.fused_normal_plain(Jaug, lam, frozen),
+                                   reps=2, rounds=3)
+    res["yardstick"] = "gj route: two torch.einsum + the B2 kernel"
+    res["yardstick_ms"] = cuda_time_ms(gj_route, reps=50)
+    n_bytes = T * R * (D + 1) * 4 + T * 4 + D * 4 + T * D * 4
+    res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, fused_ops(T, R, D))
     res["ok"] = rel <= GJ_REL_TOL
     return res
 
@@ -243,11 +445,23 @@ def phase_kernels(torch, dev, seq, cfg):
         # 32 cameras x 10 people plus 16 track slots: N = 336
         als_seeded_case(torch, dev, "rig32", 1, (16,) + (10,) * 32, n_people=16, rank=32),
     ]
-    gj = [check_gj(torch, dev, 8, 68, 0), check_gj(torch, dev, 64, 68, 1)]
-    emit({"phase": "kernels", "als": als, "gj_solve": gj})
-    if not all(r["ok"] for r in als + gj):
+    # T = 8: SHELF_BENCH's slots; T = 16: the wide rig's; T = 64 off path
+    gj = [check_gj(torch, dev, T, 68, seed)
+          for T, seed in ((8, 0), (16, 4), (64, 1))]
+    als_batched = []
+    for name, views, clusters in (("wide64_frame0", 64, 2), ("rig128_4clusters", 128, 4)):
+        W, mask, init, wcfg = wide_cluster_problems(torch, dev, views, clusters, seed=0)
+        als_batched.append(check_als_batched(torch, name, W, mask, init,
+                                             wcfg.als_max_iter, wcfg.als_stable_iters))
+    # the wide path's LM: 16 slots, 16 views x 32 residuals, 68 parameters
+    fused = [check_fused(torch, dev, 16, 16 * 32, 68, 2)]
+    gj_grid = [check_gj(torch, dev, 16, 68, 3, one_program=False)]
+    emit({"phase": "kernels", "als": als, "gj_solve": gj, "als_batched": als_batched,
+          "fused_normal_gj": fused, "gj_solve_grid": gj_grid})
+    if not all(r["ok"] for r in als + gj + als_batched + fused + gj_grid):
         raise AssertionError("a kernel disagrees with its plain version")
-    return als[0], gj[0]
+    return dict(als=als[0], gj_solve=gj[0], als_batched=als_batched[0],
+                fused_normal_gj=fused[0], gj_solve_grid=gj_grid[0])
 
 
 def count_syncs(fn):
@@ -271,12 +485,10 @@ def phase_slice(torch, dev, seq, cfg):
     from multiview_motion_capture_torch import eval as ev
     from multiview_motion_capture_torch import pipeline, tracker
     from multiview_motion_capture_torch.data.ingest import filter_bad_poses
-    from multiview_motion_capture_torch.ops import cuda_lib
 
-    for k in cuda_lib.ALL_KERNELS:
-        k.launches = 0
+    zero_launch_counts()
     res = pipeline.run(seq.batch, seq.cameras, cfg, device=dev)
-    launches = {k.name: k.launches for k in cuda_lib.ALL_KERNELS}
+    launches = launch_counts()
 
     m = ev.reprojection_metrics(res.tracklets, seq.batch, seq.cameras)
     finite = all(np.isfinite(t.poses_3d).all() for t in res.tracklets)
@@ -303,7 +515,7 @@ def phase_slice(torch, dev, seq, cfg):
            "reproj_gate_px": REPROJ_GATE_PX, "poses_finite": finite,
            "launches": launches, "host_syncs_per_frame": syncs / res.n_frames}
     emit(out)
-    if not (finite and m.n_tracklets > 0 and all(v > 0 for v in launches.values())):
+    if not (finite and m.n_tracklets > 0 and launches["als"] > 0 and launches["gj_solve"] > 0):
         raise AssertionError("slice output or kernel launches missing")
     if (m.n_degenerate_poses != 0
             or abs(m.mean_reproj_px - REFERENCE["mean_reproj_px"]) > REPROJ_GATE_PX
@@ -312,10 +524,10 @@ def phase_slice(torch, dev, seq, cfg):
     return launches
 
 
-DECISIONS = ("track_id", "active", "updated", "spawned", "matched_pose")
+DECISIONS = ("track_id", "active", "updated", "spawned", "died_track_id", "matched_pose")
 
 
-def phase_profile(torch, dev, seq, cfg, n_frames: int = 30):
+def phase_profile(torch, dev, seq, cfg, n_frames: int = 30, name: str = "profile"):
     """Where a steady-state frame's time goes: torch.profiler over
     `n_frames` frames of the tracker (after one warm pass over them).
     Device busy time is the sum of the CUDA kernels' own durations (one
@@ -345,7 +557,7 @@ def phase_profile(torch, dev, seq, cfg, n_frames: int = 30):
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    out = {"phase": "profile", "frames": n_frames, "wall_ms_per_frame": wall_ms / n_frames,
+    out = {"phase": name, "frames": n_frames, "wall_ms_per_frame": wall_ms / n_frames,
            "device_busy_ms_per_frame": busy_ms / n_frames if kernels else None,
            "idle_share": 1.0 - busy_ms / wall_ms if kernels else None,
            "kernel_launches_per_frame": len(kernels) / n_frames if kernels else None,
@@ -354,14 +566,17 @@ def phase_profile(torch, dev, seq, cfg, n_frames: int = 30):
     emit(out)
 
 
-def phase_parity(torch, dev, seq, cfg):
+def phase_parity(torch, dev, seq, cfg, frames=PARITY_FRAMES, name="parity"):
+    """The first `frames` frames tracked on the card and on the CPU (the
+    plain versions of the kernels): decisions must be equal, poses within
+    POSE_TOL_M."""
     import numpy as np
 
     from multiview_motion_capture_torch import tracker
     from multiview_motion_capture_torch.data.ingest import filter_bad_poses
 
     b = filter_bad_poses(seq.batch, cfg)
-    kps, valid = b.kps[:PARITY_FRAMES], b.valid[:PARITY_FRAMES]
+    kps, valid = b.kps[:frames], b.valid[:frames]
     outs = {}
     for d in (dev, "cpu"):
         ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=d)
@@ -370,13 +585,13 @@ def phase_parity(torch, dev, seq, cfg):
     g, c = outs[dev], outs["cpu"]
     first_diff = {}
     for f in DECISIONS:
-        bad = np.nonzero((getattr(g, f) != getattr(c, f)).reshape(PARITY_FRAMES, -1).any(1))[0]
+        bad = np.nonzero((getattr(g, f) != getattr(c, f)).reshape(frames, -1).any(1))[0]
         if len(bad):
             first_diff[f] = int(bad[0])
     upd = g.updated & c.updated
     joint_err = np.abs(g.pose3d - c.pose3d).max(-1)[upd]        # (n, 18)
     pose_err = float(joint_err.max()) if upd.any() else 0.0
-    res = {"phase": "parity", "frames": PARITY_FRAMES,
+    res = {"phase": name, "frames": frames,
            "decisions_equal": not first_diff, "first_diverging_frame": first_diff,
            "max_pose_err_m": pose_err, "pose_tol_m": POSE_TOL_M,
            "p99_joint_pose_err_m": float(np.percentile(joint_err, 99)) if upd.any() else 0.0,
@@ -384,6 +599,99 @@ def phase_parity(torch, dev, seq, cfg):
     emit(res)
     if first_diff or pose_err > POSE_TOL_M:
         raise AssertionError("card and CPU runs disagree")
+
+
+def wide_quality(res, seq):
+    import numpy as np
+
+    from multiview_motion_capture_torch import eval as ev
+
+    m = ev.reprojection_metrics(res.tracklets, seq.batch, seq.cameras)
+    q = dict(n_tracklets=m.n_tracklets, top_lengths=m.lengths[:10],
+             mean_reproj_px=m.mean_reproj_px, median_reproj_px=m.median_reproj_px,
+             n_degenerate_poses=m.n_degenerate_poses)
+    finite = all(np.isfinite(t.poses_3d).all() for t in res.tracklets)
+    return q, finite
+
+
+def phase_wide(torch, dev, seq, cfg):
+    """PipelineConfig.wide(64) end to end on the card: quality against the
+    JAX package's run of the same scene, and the first frame whose decisions
+    differ from that run's (by decision digest), with both runs' ALS
+    iterations there.  Only the card's quality is gated (reprojection within
+    REPROJ_GATE_PX, no degenerate pose): a different grouping on a frame
+    whose ALS does not settle is reported, not gated."""
+    from multiview_motion_capture_torch import eval as ev
+    from multiview_motion_capture_torch import pipeline, tracker
+    from multiview_motion_capture_torch.data.ingest import filter_bad_poses
+
+    zero_launch_counts()
+    res = pipeline.run(seq.batch, seq.cameras, cfg, device=dev)
+    launches = launch_counts()
+    q, finite = wide_quality(res, seq)
+
+    b = filter_bad_poses(seq.batch, cfg)
+    ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=dev)
+    _, o = tracker.run_offline(ctx, b.kps, b.valid)
+    o = tracker.outputs_to_numpy(o)
+    dig, ref = ev.decision_digests(o), WIDE_REFERENCE["decision_digests"]
+    first = next((f for f in range(len(dig)) if dig[f] != ref[f]), None)
+    ref_q = {k: WIDE_REFERENCE[k] for k in q}
+    out = {"phase": "wide", "frames": res.n_frames, "fps": res.fps,
+           "track_time_s": res.track_time_s, "timings": res.timings, "quality": q,
+           "reference": ref_q, "reproj_gate_px": REPROJ_GATE_PX, "poses_finite": finite,
+           "tracklets_equal_reference": q["n_tracklets"] == ref_q["n_tracklets"],
+           "first_frame_decisions_differ_from_reference": first,
+           "als_iters_there": (None if first is None else
+                               {"card": int(o.als_iters[first]),
+                                "reference": WIDE_REFERENCE["als_iters"][first]}),
+           "frames_decisions_equal_reference": sum(a == r for a, r in zip(dig, ref)),
+           "als_iters_at_cap_frames": int((o.als_iters >= cfg.assoc_clusters
+                                           * cfg.als_max_iter).sum()),
+           "mean_concurrent_tracks": res.mean_concurrent_tracks,
+           "launches": launches, "launches_per_frame": {
+               k: v / (2 * res.n_frames) for k, v in launches.items()}}
+    emit(out)
+    if not (finite and q["n_tracklets"] > 0 and launches["als_batched"] > 0
+            and launches["gj_solve"] > 0):
+        raise AssertionError("wide output or kernel launches missing")
+    if (q["n_degenerate_poses"] != 0
+            or abs(q["mean_reproj_px"] - ref_q["mean_reproj_px"]) > REPROJ_GATE_PX
+            or abs(q["median_reproj_px"] - ref_q["median_reproj_px"]) > REPROJ_GATE_PX):
+        raise AssertionError("wide quality is off the JAX reference")
+    return launches, res
+
+
+def phase_wide_fused(torch, dev, seq, cfg, gj_res):
+    """The wide run again with ik_solver="gj_fused" (kernel B4): its
+    tracklets and reprojection against the "gj" pass."""
+    import numpy as np
+
+    from multiview_motion_capture_torch import pipeline
+
+    cfg = dataclasses.replace(cfg, ik_solver="gj_fused")
+    zero_launch_counts()
+    res = pipeline.run(seq.batch, seq.cameras, cfg, device=dev)
+    launches = launch_counts()
+    q, finite = wide_quality(res, seq)
+    q_gj, _ = wide_quality(gj_res, seq)
+
+    def structure(r):
+        return [(t.track_id, list(t.frame_idxs), np.asarray(t.matched_pose).tolist())
+                for t in r.tracklets]
+
+    same = structure(res) == structure(gj_res)
+    pose = (max(float(np.abs(a.poses_3d - b.poses_3d).max())
+                for a, b in zip(res.tracklets, gj_res.tracklets)) if same else None)
+    emit({"phase": "wide_fused", "frames": res.n_frames, "fps": res.fps,
+          "track_time_s": res.track_time_s, "timings": res.timings, "quality": q,
+          "gj_pass_quality": q_gj, "tracklets_equal_gj_pass": same,
+          "max_pose_diff_m_vs_gj_pass": pose, "poses_finite": finite,
+          "launches": launches})
+    if not (finite and q["n_tracklets"] > 0 and q["n_degenerate_poses"] == 0
+            and launches["fused_normal_gj"] > 0 and launches["als_batched"] > 0):
+        raise AssertionError("wide_fused output or kernel launches missing")
+    return launches
 
 
 def main() -> int:
@@ -398,31 +706,54 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from multiview_motion_capture_torch.config import SHELF_BENCH
+    from multiview_motion_capture_torch.config import SHELF_BENCH, PipelineConfig
     from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
     from multiview_motion_capture_torch.ops import cuda_lib
 
     smi_line = phase_env(torch)
-    phase_build()
+    run_phase("build", phase_build)
     cfg = dataclasses.replace(SHELF_BENCH, max_frames=None)
     seq = synthetic_sequence(n_frames=300, n_people=4, n_views=5, cfg=cfg, seed=0)
-    als, gj = phase_kernels(torch, "cuda", seq, cfg)
-    launches = phase_slice(torch, "cuda", seq, cfg)
-    phase_parity(torch, "cuda", seq, cfg)
-    phase_profile(torch, "cuda", seq, cfg)
+    checks = run_phase("kernels", phase_kernels, torch, "cuda", seq, cfg)
+    slice_launches = run_phase("slice", phase_slice, torch, "cuda", seq, cfg)
+    run_phase("parity", phase_parity, torch, "cuda", seq, cfg)
+    run_phase("profile", phase_profile, torch, "cuda", seq, cfg)
+
+    wcfg = PipelineConfig.wide(WIDE_SCENE["n_views"], max_frames=None)
+    wseq = synthetic_sequence(cfg=wcfg, **WIDE_SCENE)
+    wide_launches, wide_res = run_phase("wide", phase_wide, torch, "cuda", wseq, wcfg)
+    fused_launches = run_phase("wide_fused", phase_wide_fused, torch, "cuda", wseq, wcfg,
+                               wide_res)
+    run_phase("wide_parity", phase_parity, torch, "cuda", wseq, wcfg, WIDE_PARITY_FRAMES,
+              "wide_parity")
+    run_phase("wide_profile", phase_profile, torch, "cuda", wseq, wcfg, WIDE_PROFILE_FRAMES,
+              "wide_profile")
+
+    paths = {"slice": slice_launches, "wide": wide_launches, "wide_fused": fused_launches}
 
     def row(kernel, replaces, r, library_ms):
-        return {"name": kernel.name, "route": "cuda",
-                "source": str(kernel.source_path.relative_to(REPO)),
-                "replaces": replaces, "launches": launches[kernel.name],
-                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": library_ms}
+        by_path = {p: c[kernel.name] for p, c in paths.items() if c[kernel.name]}
+        out = {"name": kernel.name, "route": "cuda",
+               "source": str(kernel.source_path.relative_to(REPO)),
+               "replaces": replaces, "launches": sum(by_path.values()),
+               "launches_by_path": by_path,
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": library_ms}
+        if "yardstick_ms" in r:
+            out["yardstick"], out["yardstick_ms"] = r["yardstick"], r["yardstick_ms"]
+        return out
 
+    tpu = "multiview_motion_capture_tpu/ops/"
     table = {"kernels": [
-        row(cuda_lib.ALS, "multiview_motion_capture_tpu/ops/als_pallas.py:130", als, None),
-        row(cuda_lib.GJ_SOLVE, "multiview_motion_capture_tpu/ops/solve_pallas.py:55",
-            gj, gj["library_ms"]),
+        row(cuda_lib.ALS, tpu + "als_pallas.py:130", checks["als"], None),
+        row(cuda_lib.GJ_SOLVE, tpu + "solve_pallas.py:55", checks["gj_solve"],
+            checks["gj_solve"]["library_ms"]),
+        row(cuda_lib.ALS_BATCHED, tpu + "als_pallas.py:282", checks["als_batched"], None),
+        row(cuda_lib.FUSED_NORMAL_GJ, tpu + "solve_pallas.py:111", checks["fused_normal_gj"],
+            None),
+        row(cuda_lib.GJ_SOLVE_GRID, tpu + "solve_pallas.py:29", checks["gj_solve_grid"],
+            checks["gj_solve_grid"]["library_ms"]),
     ]}
     print(smi_line, flush=True)
     emit(table)

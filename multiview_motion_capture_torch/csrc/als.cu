@@ -1,7 +1,16 @@
-// The whole ALS multi-way matching solve in one thread block, for Hopper.
+// ALS multi-way matching solves, one thread block per problem, for Hopper.
 //
 // Replaces: multiview_motion_capture_tpu/ops/als_pallas.py:_als_kernel
-// (entry `match_als_pallas`, called once per frame by tracker._run_als).
+// (entry `match_als_pallas`, called once per frame by tracker._run_als: one
+// problem) and _als_kernel_batched (entry `match_als_pallas_batched`, called
+// once per frame by tracker._clustered_association when cfg.assoc_clusters >
+// 1: the C camera clusters' [T track slots | Vc views] problems, which share
+// one layout and differ in W).  Both are this launch, with C = 1 or C
+// blocks.  Block b solves problem b: its own W, x_bin, iteration count and
+// slice of scratch; the same-group mask and the initial factor are shared.
+// Each problem freezes at its own stop test, so its x_bin and iteration
+// count do not depend on which block or launch solves it.
+//
 // It runs the ADMM/ALS loop of ref:src/mv_association.py:222-318 to its stop
 // test on the device and writes the binarized match matrix and the
 // iteration count:
@@ -18,24 +27,33 @@
 //     mu = 2 mu if p > 10 d, mu / 2 if d > 10 p
 //   x_bin = (X + X^T) / 2 > 0.5
 //
-// What bounds it on this card: at the main path's shape (n = 38, rank 16,
-// up to 100 iterations) the bytes are a few KB and one iteration is ~0.1
-// MFLOP, so neither memory nor the FP32 units are the limit.  The loop is a
-// chain of ~2 (rank + 4) dependent block-wide phases per iteration, each
-// ended by a barrier: the kernel is latency-bound by that chain.
+// What bounds it on this card: at the SHELF_BENCH shape (one problem, n =
+// 38, rank 16, up to 100 iterations) the bytes are a few KB and one
+// iteration is ~0.1 MFLOP; at the wide rig's (C = 2 clusters, n = 336, rank
+// 32) one iteration is ~20 MFLOP per problem (3 us at 67 TFLOP/s f32) and
+// the inputs ~0.5 MB.  So neither memory nor the FP32 units are the limit:
+// each problem is a chain of ~2 (rank + 4) dependent block-wide phases per
+// iteration, each ended by a barrier, and the kernel is latency-bound by
+// that chain (and, at n = 336, by L2 round trips).
 //
-// Design: one block per problem keeps all state (W, X, the next X and its
+// Design: one block keeps all state of its problem (W, X, the next X and its
 // transpose, Z, Y, the factors A^T and B^T, and the rank x (rank + n)
 // augmented block of the ridge solve) in shared memory for the whole loop,
-// so one launch per frame replaces ~15 dispatched ops per iteration and the
-// stop test never returns to the host.  The ridge solves are the TPU
-// kernel's no-pivot Gauss-Jordan (SPD plus a ridge needs no pivoting).  The
-// 128-lane padding of the TPU kernel is a TPU layout rule and is dropped:
-// the kernel runs at the true n.  Factors are kept transposed (rank x n) so
-// that neighbouring threads read neighbouring words.  Where the state does
-// not fit one block's shared memory (n above ~90, e.g. n = 336 for a 32-cam
-// x 10-people rig) the same code runs on a caller-provided scratch buffer in
-// device memory, which stays resident in the 50 MB L2.
+// so one launch replaces ~15 dispatched ops per iteration and the stop test
+// never returns to the host.  The ridge solves are the TPU kernels'
+// no-pivot Gauss-Jordan (SPD plus a ridge needs no pivoting).  The 128-lane
+// padding of the TPU kernels is a TPU layout rule and is dropped: the kernel
+// runs at the true n.  Factors are kept transposed (rank x n) so that
+// neighbouring threads read neighbouring words.  Where the state does not
+// fit one block's shared memory (n above ~90, e.g. n = 336 for a 32-cam x
+// 10-people rig or cluster) the same code runs on a caller-provided scratch
+// buffer in device memory, one slice per problem (~2.8 MB at n = 336), which
+// stays resident in the 50 MB L2.  The TPU batched kernel ran the C problems
+// in one program to pay its dependency chain once for all of them, and
+// split larger batches to fit its VMEM budget (als_pallas.max_als_batch); on
+// Hopper the C chains run side by side on C SMs, so all C problems go in one
+// launch as long as C fits the 132 SMs (more problems queue for a free SM
+// and stay correct).
 //
 // Rounding: the iteration often does not converge within max_iter, and then
 // its result depends on every rounding.  Each output element is therefore
@@ -53,13 +71,13 @@ namespace {
 
 constexpr size_t kSmemLimit = 230000;  // of the 232448 B a block may opt into
 
-size_t state_floats(int n, int r) {
+__host__ __device__ inline size_t state_floats(int n, int r) {
   const size_t nn = static_cast<size_t>(n) * n;
   const size_t C = static_cast<size_t>(r) + n;
   return 6 * nn + 2 * static_cast<size_t>(r) * n + r * C + C + r;
 }
 
-size_t smem_bytes(int n, int r) {
+inline size_t smem_bytes(int n, int r) {
   return state_floats(n, r) * sizeof(float) + static_cast<size_t>(n) * n;
 }
 
@@ -146,6 +164,11 @@ als_kernel(const float* __restrict__ W_in, const uint8_t* __restrict__ dmask_in,
   __shared__ double red[96];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int nn = n * n, C = r + n;
+  // this block's problem
+  W_in += static_cast<size_t>(blockIdx.x) * nn;
+  x_bin += static_cast<size_t>(blockIdx.x) * nn;
+  iters_out += blockIdx.x;
+  if (gscratch) gscratch += static_cast<size_t>(blockIdx.x) * state_floats(n, r);
 
   float* base = gscratch ? gscratch : reinterpret_cast<float*>(smem_f4);
   float* W = base;
@@ -257,19 +280,23 @@ als_kernel(const float* __restrict__ W_in, const uint8_t* __restrict__ dmask_in,
 
 }  // namespace
 
-// Floats of device scratch the caller must pass for this (n, rank): 0 when
-// the state fits one block's shared memory.
+// Floats of device scratch ONE problem needs at this (n, rank): 0 when its
+// state fits one block's shared memory.  The caller passes C times as many.
 extern "C" int als_scratch_floats(int n, int r) {
   if (n <= 0 || r <= 0) return 0;
   return smem_bytes(n, r) <= kSmemLimit ? 0 : static_cast<int>(state_floats(n, r));
 }
 
+// Solve `problems` problems, one block each: W and x_bin (problems, n, n),
+// iters (problems,); scratch holds problems * als_scratch_floats(n, r)
+// floats (or is null when that is 0).  Returns the launch's cudaError_t.
 extern "C" int als_solve_f32(const void* W, const void* dmask, const void* init_A,
-                             int n, int r, float alpha, float beta, float mu0,
-                             float tol, int max_iter, int stable_iters,
+                             int problems, int n, int r, float alpha, float beta,
+                             float mu0, float tol, int max_iter, int stable_iters,
                              void* x_bin, void* iters, void* scratch,
                              void* stream) {
-  if (n <= 0 || r <= 0 || r > n) return static_cast<int>(cudaErrorInvalidValue);
+  if (problems <= 0 || n <= 0 || r <= 0 || r > n)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool in_smem = smem_bytes(n, r) <= kSmemLimit;
   if (!in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const size_t dyn = in_smem ? smem_bytes(n, r) : 0;
@@ -280,7 +307,7 @@ extern "C" int als_solve_f32(const void* W, const void* dmask, const void* init_
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int threads = n <= 64 ? 256 : 1024;
-  als_kernel<<<1, threads, dyn, static_cast<cudaStream_t>(stream)>>>(
+  als_kernel<<<problems, threads, dyn, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(W), static_cast<const uint8_t*>(dmask),
       static_cast<const float*>(init_A), n, r, alpha, beta, mu0, tol,
       max_iter, stable_iters, static_cast<uint8_t*>(x_bin),

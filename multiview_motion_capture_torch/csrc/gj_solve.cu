@@ -1,8 +1,10 @@
 // Batched no-pivot Gauss-Jordan solve of damped SPD systems, for Hopper.
 //
 // Replaces: multiview_motion_capture_tpu/ops/solve_pallas.py:_gj_kernel_3d
-// (entry `batched_spd_solve(one_program=True)`), and with the same launch
-// `_gj_kernel` (one program per system, `one_program=False`).  It solves the
+// (entry `batched_spd_solve(one_program=True)`) and _gj_kernel (one program
+// per system, `one_program=False`): on Hopper both launch shapes are this
+// one, a block per system (ops/solve_kernel.py counts the two entries
+// apart).  It solves the
 // T Levenberg-Marquardt normal-equation systems
 //   (J^T J + (lam + ridge) I + frozen_diag) x = g,  D = 68 parameters,
 // one per track slot, once per LM iteration (ops/ik.py).

@@ -1,10 +1,13 @@
 """Reprojection quality of tracking runs (port of `reprojection_metrics`
 from `multiview_motion_capture_tpu/eval.py`): reproject each tracked pose
 into the views it was matched in and measure the pixel distance to the
-matched detection's keypoints."""
+matched detection's keypoints.  `decision_digests` fingerprints each
+frame's tracking decisions, so two runs can be compared frame by frame
+without carrying their outputs."""
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Dict, List
 
 import numpy as np
@@ -86,3 +89,23 @@ def reprojection_metrics(tracklets: List[Tracklet], batch: FrameBatch,
         per_tracklet_reproj_px=per_tlet,
         n_degenerate_poses=n_degenerate,
     )
+
+
+DECISION_FIELDS = ("track_id", "active", "updated", "spawned", "died_track_id",
+                   "matched_pose")
+
+
+def decision_digests(out) -> List[str]:
+    """One short hash per frame of a run's decisions: `out` holds the
+    per-frame outputs (F, ...) of `DECISION_FIELDS` as numpy arrays (the
+    port's `FrameOutput` or the JAX package's, moved to the host).  Equal
+    digests mean equal track ids, lifecycle states, updated/spawned flags,
+    deaths and matched detections on that frame."""
+    fields = [np.asarray(getattr(out, f)).astype(np.int32) for f in DECISION_FIELDS]
+    digests = []
+    for frame in range(fields[0].shape[0]):
+        h = hashlib.sha1()
+        for a in fields:
+            h.update(np.ascontiguousarray(a[frame]).tobytes())
+        digests.append(h.hexdigest()[:10])
+    return digests

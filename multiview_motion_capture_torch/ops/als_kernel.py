@@ -1,24 +1,32 @@
-"""The ALS association solve: CUDA kernel wrapper and its plain version.
+"""The ALS association solves: CUDA kernel wrappers and their plain versions.
 
 Port of `multiview_motion_capture_tpu/ops/als_pallas.py:match_als_pallas`
-(the fused TPU kernel `_als_kernel`).  `match_als` takes the unpadded (N, N)
-similarity and the same-group mask:
+and `match_als_pallas_batched` (the fused TPU kernels `_als_kernel` and
+`_als_kernel_batched`).  Both take unpadded matrices and the same-group
+mask:
 
-- a CUDA tensor launches `csrc/als.cu` (one thread block runs the whole
-  ADMM loop and its stop test on the device) and raises on anything the
-  kernel does not take;
-- a CPU tensor takes the plain torch version, `association.match_als`.
+- `match_als(W (N, N), ...)`: a CUDA tensor launches `csrc/als.cu` with
+  one problem (one thread block runs the whole ADMM loop and its stop test
+  on the device), counted in `cuda_lib.ALS.launches`;
+- `match_als_batched(W (C, N, N), ...)`: C problems of one layout (the
+  camera clusters of a wide rig); a CUDA tensor launches `csrc/als.cu` once
+  for all C (one block per problem, each stopping at its own test), counted
+  in `cuda_lib.ALS_BATCHED.launches`;
+- a CPU tensor takes the plain torch version, `association.match_als`
+  (once per problem for the batch).
 
-There is no fallback between the two.  `cuda_lib.ALS.launches` counts the
-kernel launches.
+Each wrapper raises on anything its kernel does not take; there is no
+fallback between kernel and plain version.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from multiview_motion_capture_torch.ops import association
 from multiview_motion_capture_torch.ops.association import AlsResult
-from multiview_motion_capture_torch.ops.cuda_lib import ALS
+from multiview_motion_capture_torch.ops.cuda_lib import ALS, ALS_BATCHED, CudaKernel
 
 # Largest matrix side the kernel takes: the JAX context's fused-kernel
 # ceiling (als_pallas.MAX_PAD), which covers a 32-cam x 10-people rig at
@@ -42,6 +50,76 @@ def match_als(W: torch.Tensor, diag_mask: torch.Tensor, init_A: torch.Tensor,
     n = W.shape[0]
     if W.shape != (n, n) or W.dtype != torch.float32:
         raise ValueError(f"W must be (N, N) float32, got {tuple(W.shape)} {W.dtype}")
+    rank = _check_inputs(W, n, diag_mask, init_A)
+    x_bin, iters = _launch(ALS, W, diag_mask, init_A, rank, alpha, beta, mu0, tol,
+                           max_iter, stable_iters)
+    return AlsResult(x_bin=x_bin[0], n_iters=iters[0])
+
+
+class AlsBatchResult(NamedTuple):
+    x_bin: torch.Tensor    # (C, N, N) bool, each problem's binarized match matrix
+    n_iters: torch.Tensor  # (C,) int32, each problem's iteration count
+
+
+def match_als_batched(W: torch.Tensor, diag_mask: torch.Tensor, init_A: torch.Tensor,
+                      alpha: float = 50.0, beta: float = 0.1, mu0: float = 64.0,
+                      tol: float = 1e-4, max_iter: int = 1000,
+                      stable_iters: int = 0) -> AlsBatchResult:
+    """C independent ALS matchings of one layout: W (C, N, N) similarities,
+    one (N, N) same-group mask and one (N, rank) initial factor for all.
+    Each problem stops at its own test, so problem c's result equals
+    `match_als(W[c], ...)`, bit for bit, on either device."""
+    if W.dim() != 3 or W.shape[1] != W.shape[2]:
+        raise ValueError(f"W must be (C, N, N), got {tuple(W.shape)}")
+    kw = dict(alpha=alpha, beta=beta, mu0=mu0, tol=tol, max_iter=max_iter,
+              stable_iters=stable_iters)
+    if W.device.type == "cpu":
+        solos = [association.match_als(W[c], diag_mask, init_A, **kw)
+                 for c in range(W.shape[0])]
+        return AlsBatchResult(x_bin=torch.stack([s.x_bin for s in solos]),
+                              n_iters=torch.stack([s.n_iters for s in solos]))
+    if W.device.type != "cuda":
+        raise ValueError(f"match_als_batched: unsupported device {W.device}")
+    C, n = W.shape[0], W.shape[1]
+    if W.dtype != torch.float32:
+        raise ValueError(f"W must be float32, got {W.dtype}")
+    if C < 1:
+        raise ValueError("match_als_batched needs at least one problem")
+    rank = _check_inputs(W, n, diag_mask, init_A)
+    x_bin, iters = _launch(ALS_BATCHED, W, diag_mask, init_A, rank, alpha, beta, mu0, tol,
+                           max_iter, stable_iters)
+    return AlsBatchResult(x_bin=x_bin, n_iters=iters)
+
+
+def _launch(kernel: CudaKernel, W: torch.Tensor, diag_mask: torch.Tensor,
+            init_A: torch.Tensor, rank: int, alpha: float, beta: float, mu0: float,
+            tol: float, max_iter: int, stable_iters: int):
+    """One launch of `csrc/als.cu` for the problems of W ((N, N) is one
+    problem, (C, N, N) C of them), counted in `kernel.launches`.  Returns
+    x_bin (C, N, N) and iters (C,)."""
+    n = W.shape[-1]
+    C = W.shape[0] if W.dim() == 3 else 1
+    lib = kernel.lib()
+    x_bin = torch.empty((C, n, n), dtype=torch.bool, device=W.device)
+    iters = torch.empty((C,), dtype=torch.int32, device=W.device)
+    n_scratch = C * lib.als_scratch_floats(n, rank)
+    scratch = (torch.empty((n_scratch,), dtype=torch.float32, device=W.device)
+               if n_scratch > 0 else None)
+    stream = torch.cuda.current_stream(W.device).cuda_stream
+    err = lib.als_solve_f32(
+        W.data_ptr(), diag_mask.data_ptr(), init_A.data_ptr(), C, n, rank,
+        float(alpha), float(beta), float(mu0), float(tol), int(max_iter),
+        int(stable_iters), x_bin.data_ptr(), iters.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, stream)
+    if err != 0:
+        raise RuntimeError(f"als_solve_f32 launch failed: cudaError {err}")
+    kernel.launches += 1
+    return x_bin, iters
+
+
+def _check_inputs(W: torch.Tensor, n: int, diag_mask: torch.Tensor,
+                  init_A: torch.Tensor) -> int:
+    """Raise on what the ALS kernels do not take; returns the rank."""
     if n > MAX_N:
         raise ValueError(f"association matrix n={n} exceeds the kernel's MAX_N={MAX_N}")
     if diag_mask.shape != (n, n) or diag_mask.dtype != torch.bool:
@@ -56,20 +134,4 @@ def match_als(W: torch.Tensor, diag_mask: torch.Tensor, init_A: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, W on {W.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-
-    lib = ALS.lib()
-    x_bin = torch.empty((n, n), dtype=torch.bool, device=W.device)
-    iters = torch.empty((1,), dtype=torch.int32, device=W.device)
-    n_scratch = lib.als_scratch_floats(n, rank)
-    scratch = (torch.empty((n_scratch,), dtype=torch.float32, device=W.device)
-               if n_scratch > 0 else None)
-    stream = torch.cuda.current_stream(W.device).cuda_stream
-    err = lib.als_solve_f32(
-        W.data_ptr(), diag_mask.data_ptr(), init_A.data_ptr(), n, rank,
-        float(alpha), float(beta), float(mu0), float(tol), int(max_iter),
-        int(stable_iters), x_bin.data_ptr(), iters.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None, stream)
-    if err != 0:
-        raise RuntimeError(f"als_solve_f32 launch failed: cudaError {err}")
-    ALS.launches += 1
-    return AlsResult(x_bin=x_bin, n_iters=iters[0])
+    return rank

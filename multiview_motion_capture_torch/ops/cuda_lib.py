@@ -3,18 +3,24 @@
 Each kernel source under `csrc/` has a plain C interface.  At first use it
 is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library under
 `build/torch_kernels/` at the root of the checkout and loaded with ctypes;
-the library name carries a hash of the source, so an edited source is
-rebuilt and a stale library is never loaded.  Nothing is built or loaded
-at import time: the CPU test suite imports every module and has no nvcc.
+the library name carries a hash of the source and of every `csrc/` header
+it includes, so an edited source or header is rebuilt and a stale library
+is never loaded.  Nothing is built or loaded at import time: the CPU test
+suite imports every module and has no nvcc.
 
-Every `CudaKernel` keeps a plain integer `launches` count that its wrapper
-raises by one per kernel launch and nowhere else.
+A `CudaLibrary` is one source and its build.  A `CudaKernel` is one entry
+of the kernel table (one TPU kernel's counterpart): the library it launches
+and a plain integer `launches` count that its wrapper raises by one per
+kernel launch and nowhere else.  Two entries may launch one library: B1 and
+B3 (one ALS problem or C of them), B2 and B5 (the TPU package's two launch
+shapes of one Gauss-Jordan solve).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def find_nvcc() -> str:
@@ -40,14 +47,13 @@ def find_nvcc() -> str:
     return nvcc
 
 
-class CudaKernel:
-    """One `csrc/*.cu` source, its C functions and its launch count."""
+class CudaLibrary:
+    """One `csrc/*.cu` source, its C functions and its build."""
 
     def __init__(self, name: str, source: str, signatures: Dict[str, tuple]):
         self.name = name
         self.source = source
         self.signatures = signatures   # C function -> (restype, argtypes)
-        self.launches = 0
         self.build_log = ""
         self.build_seconds: Optional[float] = None
         self._lib = None
@@ -57,10 +63,24 @@ class CudaKernel:
     def source_path(self) -> Path:
         return CSRC_DIR / self.source
 
+    def source_files(self) -> list:
+        """The source and every file it includes with `#include "..."`,
+        transitively, each once (local includes resolve beside the file
+        that names them, as nvcc resolves them)."""
+        files, todo = [], [self.source_path]
+        while todo:
+            f = todo.pop(0).resolve()
+            if f in files:
+                continue
+            files.append(f)
+            todo.extend(f.parent / inc for inc in _INCLUDE.findall(f.read_text()))
+        return files
+
     def library_path(self) -> Path:
-        digest = hashlib.sha1(self.source_path.read_bytes()
-                              + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        return BUILD_DIR / f"lib{self.name}_{digest}.so"
+        h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        for f in self.source_files():
+            h.update(f.name.encode() + b"\0" + f.read_bytes())
+        return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:12]}.so"
 
     def _start_build(self) -> Optional[tuple]:
         out = self.library_path()
@@ -97,27 +117,53 @@ class CudaKernel:
             return self._lib
 
 
-ALS = CudaKernel("als", "als.cu", {
+class CudaKernel:
+    """One entry of the kernel table: its library and its launch count."""
+
+    def __init__(self, name: str, library: CudaLibrary):
+        self.name = name
+        self.library = library
+        self.launches = 0
+
+    @property
+    def source_path(self) -> Path:
+        return self.library.source_path
+
+    def lib(self) -> ctypes.CDLL:
+        return self.library.lib()
+
+
+ALS_LIB = CudaLibrary("als", "als.cu", {
     "als_scratch_floats": (_i, [_i, _i]),
-    # W, diag_mask, init_A, n, rank, alpha, beta, mu0, tol, max_iter,
-    # stable_iters, x_bin, iters, scratch, stream
-    "als_solve_f32": (_i, [_p, _p, _p, _i, _i, _f, _f, _f, _f, _i, _i,
+    # W, diag_mask, init_A, problems, n, rank, alpha, beta, mu0, tol,
+    # max_iter, stable_iters, x_bin, iters, scratch, stream
+    "als_solve_f32": (_i, [_p, _p, _p, _i, _i, _i, _f, _f, _f, _f, _i, _i,
                            _p, _p, _p, _p]),
 })
-
-GJ_SOLVE = CudaKernel("gj_solve", "gj_solve.cu", {
+GJ_LIB = CudaLibrary("gj_solve", "gj_solve.cu", {
     # A, g, x, T, D, stream
     "gj_solve_f32": (_i, [_p, _p, _p, _i, _i, _p]),
 })
+FUSED_NORMAL_GJ_LIB = CudaLibrary("fused_normal_gj", "fused_normal_gj.cu", {
+    "fused_normal_max_d": (_i, []),
+    # Jaug, lam, frozen_diag, x, T, R, D, stream
+    "fused_normal_gj_f32": (_i, [_p, _p, _p, _p, _i, _i, _i, _p]),
+})
+ALL_LIBRARIES = (ALS_LIB, GJ_LIB, FUSED_NORMAL_GJ_LIB)
 
-ALL_KERNELS = (ALS, GJ_SOLVE)
+ALS = CudaKernel("als", ALS_LIB)                            # B1: one problem
+ALS_BATCHED = CudaKernel("als_batched", ALS_LIB)            # B3: C cluster problems
+GJ_SOLVE = CudaKernel("gj_solve", GJ_LIB)                   # B2: one_program=True
+GJ_SOLVE_GRID = CudaKernel("gj_solve_grid", GJ_LIB)         # B5: one_program=False
+FUSED_NORMAL_GJ = CudaKernel("fused_normal_gj", FUSED_NORMAL_GJ_LIB)   # B4
+ALL_KERNELS = (ALS, ALS_BATCHED, GJ_SOLVE, GJ_SOLVE_GRID, FUSED_NORMAL_GJ)
 
 
-def build_all(kernels: Iterable[CudaKernel] = ALL_KERNELS) -> Dict[str, float]:
-    """Build every kernel with one nvcc process each, all started together,
-    then load them.  Returns seconds per kernel (0.0 when already built)."""
-    kernels = list(kernels)
-    pending = [(k, k._start_build()) for k in kernels]
+def build_all(libraries: Iterable[CudaLibrary] = ALL_LIBRARIES) -> Dict[str, float]:
+    """Build every library with one nvcc process each, all started together,
+    then load them.  Returns seconds per library (0.0 when already built)."""
+    libraries = list(libraries)
+    pending = [(k, k._start_build()) for k in libraries]
     errors = []
     for k, p in pending:
         if p is None:
@@ -129,6 +175,6 @@ def build_all(kernels: Iterable[CudaKernel] = ALL_KERNELS) -> Dict[str, float]:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
-    for k in kernels:
+    for k in libraries:
         k.lib()
-    return {k.name: k.build_seconds for k in kernels}
+    return {k.name: k.build_seconds for k in libraries}

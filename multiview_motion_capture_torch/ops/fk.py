@@ -100,6 +100,11 @@ class Skeleton(NamedTuple):
             parents=torch.as_tensor(_PARENTS, device=device),
         )
 
+    def to(self, dtype) -> "Skeleton":
+        """The same skeleton with its float fields in `dtype`."""
+        return self._replace(bone_dirs=self.bone_dirs.to(dtype),
+                             side_bone_lens=self.side_bone_lens.to(dtype))
+
 
 def euler_to_matrix(euler: Tensor) -> Tensor:
     """(..., 3) euler angles -> (..., 3, 3) rotation R = Rx @ Ry @ Rz."""

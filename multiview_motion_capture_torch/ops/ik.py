@@ -1,10 +1,13 @@
 """Batched Levenberg-Marquardt inverse kinematics on reprojection residuals.
 
 Port of `multiview_motion_capture_tpu/ops/ik.py` (ref:src/
-inverse_kinematics.py:202-433) for the "gj" solver of the main path: all T
-track slots solve at once, each LM iteration assembles the damped normal
+inverse_kinematics.py:202-433) for the batched solvers: all T track slots
+solve at once.  Each LM iteration either assembles the damped normal
 equations with two batched products and solves them in one launch of the
-batched Gauss-Jordan kernel (`ops/solve_kernel.py`).
+batched Gauss-Jordan kernel (solver "gj"), or hands [J | r] to the fused
+kernel that forms and solves them in one launch (solver "gj_fused"; both in
+`ops/solve_kernel.py`).  Projections are shared (V, 3, 4) or per slot
+(T, V, 3, 4): the tracker's top-k view subset on wide rigs.
 
 Parameter packing: x = [root(3) | euler(18*3) | side_bone_lens(11)] = 68.
 The per-slot "chol" solver of the JAX package is not ported yet.
@@ -31,7 +34,7 @@ from multiview_motion_capture_torch.ops.fk import (
     mm3,
     mv3,
 )
-from multiview_motion_capture_torch.ops.solve_kernel import batched_spd_solve
+from multiview_motion_capture_torch.ops.solve_kernel import batched_spd_solve, fused_normal_solve
 from multiview_motion_capture_torch.pose_def import (
     BASIC_18_PARENTS,
     IK_OBS_KPS_IDX,
@@ -40,6 +43,7 @@ from multiview_motion_capture_torch.pose_def import (
     KpsType,
     kps_index,
 )
+from multiview_motion_capture_torch.utils.precision import WORK_DTYPE
 
 Tensor = torch.Tensor
 
@@ -169,10 +173,12 @@ def geometric_init(tri18: Tensor, skel: Skeleton, min_score: float = 0.05) -> Te
 
 
 def _project_sel(joints: Tensor, P: Tensor, eps: float):
-    """Project the 16 observable joints: returns (uv (T, V, 16, 2), w (T, V, 16, 1))."""
+    """Project the 16 observable joints through P (V, 3, 4) shared or
+    (T, V, 3, 4) per slot: returns (uv (T, V, 16, 2), w (T, V, 16, 1))."""
     sel = joints[:, on_device(IK_SKEL_KPS_IDX, joints.device)]       # (T, 16, 3)
     homo = torch.cat([sel, torch.ones_like(sel[..., :1])], dim=-1)   # (T, 16, 4)
-    proj = torch.einsum("vab,tkb->tvka", P, homo)                    # (T, V, 16, 3)
+    spec = "tvab,tkb->tvka" if P.dim() == 4 else "vab,tkb->tvka"
+    proj = torch.einsum(spec, P, homo)                               # (T, V, 16, 3)
     wq = eps + proj[..., 2:3]
     return proj[..., :2] / wq, wq
 
@@ -181,8 +187,8 @@ def _residual(x: Tensor, skel: Skeleton, obs: Tensor, view_w: Tensor, P: Tensor,
               eps: float) -> Tensor:
     """Score-weighted reprojection residual, batched over slots.
 
-    x: (T, 68); obs: (T, V, 18, 3) COCO+spine; view_w: (T, V); P: (V, 3, 4).
-    Returns (T, V*16*2)."""
+    x: (T, 68); obs: (T, V, 18, 3) COCO+spine; view_w: (T, V); P: (V, 3, 4)
+    or (T, V, 3, 4).  Returns (T, V*16*2)."""
     p = IkParams.unpack(x)
     joints = forward_kinematics(skel, p.root, p.euler, p.side_lens)
     uv, _ = _project_sel(joints, P, eps)
@@ -236,8 +242,9 @@ def _residual_and_jacobian(x: Tensor, skel: Skeleton, obs: Tensor, view_w: Tenso
     score = tgt[..., 2:3] * view_w[:, :, None, None]          # (T, V, 16, 1)
     r = ((uv - tgt[..., :2]) * score).reshape(T, -1)
 
-    duv = (P[None, :, None, :2, :3]
-           - uv[..., None] * P[None, :, None, None, 2, :3]) / wq[..., None]
+    Pt = P if P.dim() == 4 else P[None]                       # (T or 1, V, 3, 4)
+    duv = (Pt[:, :, None, :2, :3]
+           - uv[..., None] * Pt[:, :, None, None, 2, :3]) / wq[..., None]
     J = torch.einsum("tvkix,tkpx->tvkip", duv, dX_sel) * score[..., None]
     return r, J.reshape(T, -1, N_PARAMS)
 
@@ -245,9 +252,18 @@ def _residual_and_jacobian(x: Tensor, skel: Skeleton, obs: Tensor, view_w: Tenso
 def _lm_solve_batched(x0: Tensor, skel: Skeleton, obs: Tensor, view_w: Tensor,
                       P: Tensor, free_mask: Tensor, n_iters: int, eps: float,
                       lam0: float, lam_up: float, lam_down: float,
-                      ftol: float = 2e-6, xtol: float = 1e-6) -> Tensor:
+                      ftol: float = 2e-6, xtol: float = 1e-6,
+                      fused: bool = False) -> Tensor:
     """Batched LM over all T slots, every slot's damped normal equations
-    solved in one launch of the batched Gauss-Jordan kernel per iteration.
+    solved in one kernel launch per iteration: the batched Gauss-Jordan on
+    normal equations assembled by two batched products, or (`fused`) the
+    fused kernel that forms them from [J | r] itself (ik.py:413-417 of the
+    JAX package).
+
+    The parameters, the damping and the kernels' inputs are f32; residuals,
+    jacobians, the normal equations and the costs are formed in
+    `WORK_DTYPE` and rounded once where they enter a kernel
+    (utils/precision.py), so the card and the CPU step alike.
 
     A slot freezes once it converges; slots with no observations start
     frozen (they can never take a "better" step, ik.py:441-449).  Frozen
@@ -255,26 +271,35 @@ def _lm_solve_batched(x0: Tensor, skel: Skeleton, obs: Tensor, view_w: Tensor,
     changes nothing: the loop only checks for that on the host once every
     `LM_SYNC_EVERY` iterations."""
     T, n = x0.shape
-    dev, dt = x0.device, x0.dtype
-    eye = torch.eye(n, dtype=dt, device=dev)
-    frozen_diag = torch.diag(1.0 - free_mask)
+    dev, dt, wd = x0.device, x0.dtype, WORK_DTYPE
+    eye = torch.eye(n, dtype=wd, device=dev)
+    frozen_diag = torch.diag(1.0 - free_mask).to(wd)
+    skel, obs, view_w, P = skel.to(wd), obs.to(wd), view_w.to(wd), P.to(wd)
+
+    def residual(x):
+        return _residual(x.to(wd), skel, obs, view_w, P, eps)
 
     x = x0
-    r = _residual(x0, skel, obs, view_w, P, eps)
+    r = residual(x0)
     lam = torch.full((T,), lam0, dtype=dt, device=dev)
     active = view_w.sum(dim=1) > 0
     for it in range(n_iters):
         if it > 0 and it % LM_SYNC_EVERY == 0 and not bool(active.any()):
             break
-        _, J = _residual_and_jacobian(x, skel, obs, view_w, P, eps)
+        _, J = _residual_and_jacobian(x.to(wd), skel, obs, view_w, P, eps)
         J = J * free_mask[None, None, :]
-        JtJ = torch.einsum("trd,tre->tde", J, J)
-        g = torch.einsum("trd,tr->td", J, r)
-        ridge = 1e-6 * (torch.diagonal(JtJ, dim1=1, dim2=2).sum(-1) / n) + 1e-6
-        A = JtJ + (lam + ridge)[:, None, None] * eye + frozen_diag[None]
-        dx = -batched_spd_solve(A.contiguous(), g.contiguous()) * free_mask[None, :]
+        if fused:
+            Jaug = torch.cat([J, r[:, :, None]], dim=2).to(dt)
+            dx = -fused_normal_solve(Jaug, lam, 1.0 - free_mask) * free_mask[None, :]
+        else:
+            JtJ = torch.einsum("trd,tre->tde", J, J)
+            g = torch.einsum("trd,tr->td", J, r)
+            ridge = 1e-6 * (torch.diagonal(JtJ, dim1=1, dim2=2).sum(-1) / n) + 1e-6
+            A = JtJ + (lam.to(wd) + ridge)[:, None, None] * eye + frozen_diag[None]
+            dx = -batched_spd_solve(A.to(dt).contiguous(),
+                                    g.to(dt).contiguous()) * free_mask[None, :]
         x_new = x + dx
-        r_new = _residual(x_new, skel, obs, view_w, P, eps)
+        r_new = residual(x_new)
         c_old = (r * r).sum(dim=1)
         c_new = (r_new * r_new).sum(dim=1)
         better = (c_new < c_old) & torch.isfinite(c_new) & active
@@ -300,11 +325,13 @@ def solve_two_stage(init: IkParams, skel: Skeleton, obs_coco: Tensor,
     (ref:src/inverse_kinematics.py:402-407), batched over track slots.
 
     init: IkParams batched (T, ...); obs_coco: (T, V, 17, 3); view_w: (T, V)
-    weights, 0 for cameras not in the match; P: (V, 3, 4).  stages=1 runs
-    one all-parameter solve.  Returns (params, joints (T, 18, 3))."""
-    if solver != "gj":
+    weights, 0 for cameras not in the match; P: (V, 3, 4) shared, or
+    (T, V, 3, 4) per slot (the tracker's top-k view subset on wide rigs,
+    cfg.ik_max_views).  solver: "gj" or "gj_fused".  stages=1 runs one
+    all-parameter solve.  Returns (params, joints (T, 18, 3))."""
+    if solver not in ("gj", "gj_fused"):
         raise NotImplementedError(
-            f"ik solver {solver!r} is not ported; the port runs solver='gj'")
+            f"ik solver {solver!r} is not ported; the port runs 'gj' and 'gj_fused'")
     dev = obs_coco.device
     obs = add_mid_spine(obs_coco)
     free_pose = on_device(_FREE_POSE, dev)
@@ -313,12 +340,15 @@ def solve_two_stage(init: IkParams, skel: Skeleton, obs_coco: Tensor,
 
     def stage(x, mask):
         return _lm_solve_batched(x, skel, obs, view_w, P, mask, n_iters, eps,
-                                 lam0, lam_up, lam_down, ftol=ftol, xtol=xtol)
+                                 lam0, lam_up, lam_down, ftol=ftol, xtol=xtol,
+                                 fused=(solver == "gj_fused"))
 
     if stages == 1:
         x = stage(x0, free_all)
     else:
         x = stage(stage(x0, free_pose), free_all)
     params = IkParams.unpack(x)
-    joints = forward_kinematics(skel, params.root, params.euler, params.side_lens)
+    wd = WORK_DTYPE
+    joints = forward_kinematics(skel.to(wd), params.root.to(wd), params.euler.to(wd),
+                                params.side_lens.to(wd)).to(x.dtype)
     return params, joints

@@ -1,28 +1,41 @@
-"""Batched SPD solve of the LM normal equations: CUDA kernel wrapper and
-its plain version.
+"""Batched solves of the LM normal equations: CUDA kernel wrappers and
+their plain versions.
 
-Port of `multiview_motion_capture_tpu/ops/solve_pallas.py:
-batched_spd_solve` (TPU kernels `_gj_kernel_3d` and `_gj_kernel`).
-`batched_spd_solve(A, g)` solves A[t] x[t] = g[t] for T SPD systems:
+Port of `multiview_motion_capture_tpu/ops/solve_pallas.py` (TPU kernels
+`_gj_kernel_3d`, `_gj_kernel` and `_fused_normal_gj_kernel`):
 
-- a CUDA tensor launches `csrc/gj_solve.cu` (one thread block per system,
-  the augmented block in shared memory) and raises on anything the kernel
-  does not take;
-- a CPU tensor takes `gauss_jordan_plain`, the same no-pivot Gauss-Jordan
-  in torch ops, step for step as the TPU kernel.
+- `batched_spd_solve(A, g)` solves A[t] x[t] = g[t] for T SPD systems.  A
+  CUDA tensor launches `csrc/gj_solve.cu` (one thread block per system, the
+  augmented block in shared memory); a CPU tensor takes
+  `gauss_jordan_plain`, the same no-pivot Gauss-Jordan in torch ops, step
+  for step as the TPU kernel.  `one_program` selects between the TPU
+  kernel's two launch shapes; on Hopper both are the same launch (one block
+  per system), counted apart: `cuda_lib.GJ_SOLVE.launches` for
+  `one_program=True`, `cuda_lib.GJ_SOLVE_GRID.launches` for False.
+- `fused_normal_solve(Jaug, lam, frozen_diag)` forms each slot's damped
+  normal equations from [J | r] and solves them.  A CUDA tensor launches
+  `csrc/fused_normal_gj.cu` (one block per slot; J^T J never leaves the
+  SM), counted in `cuda_lib.FUSED_NORMAL_GJ.launches`; a CPU tensor takes
+  `fused_normal_plain`.
 
-`one_program` selects between the TPU kernel's two launch shapes; on
-Hopper both are the same launch (one block per system), so it changes
-nothing.  `cuda_lib.GJ_SOLVE.launches` counts the kernel launches.
+Every wrapper raises on anything its kernel does not take; there is no
+fallback from a CUDA tensor to a plain version.
 """
 from __future__ import annotations
 
 import torch
 
-from multiview_motion_capture_torch.ops.cuda_lib import GJ_SOLVE
+from multiview_motion_capture_torch.ops.cuda_lib import (
+    FUSED_NORMAL_GJ,
+    GJ_SOLVE,
+    GJ_SOLVE_GRID,
+)
 
 # shared memory of one block: D x (D + 1) augmented block plus two buffers
 MAX_D = 230
+# the fused kernel: each of its 1024 threads owns at most 8 entries of the
+# D x (D + 1) block (`fused_normal_max_d` in the source)
+FUSED_MAX_D = 90
 
 
 def gauss_jordan_plain(A: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -37,6 +50,72 @@ def gauss_jordan_plain(A: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         elim = aug - col * pivot_row[:, None, :]
         aug = torch.where(row_ids == k, pivot_row[:, None, :], elim)
     return aug[:, :, D]
+
+
+def fused_normal_plain(Jaug: torch.Tensor, lam: torch.Tensor,
+                       frozen_diag: torch.Tensor) -> torch.Tensor:
+    """The fused kernel's function in torch ops: (T, R, D+1), (T,), (D,) ->
+    (T, D).  G = Jaug^T Jaug (first D rows) summed over the R rows in index
+    order, one rounding per product and per sum; tr summed over the diagonal
+    in index order; then + (lam + ridge) I + diag(frozen_diag) and
+    `gauss_jordan_plain`: the kernel's operations in the kernel's order."""
+    T, R, D1 = Jaug.shape
+    D = D1 - 1
+    Jd = Jaug[:, :, :D]
+    G = Jd[:, 0, :, None] * Jaug[:, 0, None, :]               # (T, D, D+1)
+    for r in range(1, R):
+        G = G + Jd[:, r, :, None] * Jaug[:, r, None, :]
+    diag = torch.diagonal(G[:, :, :D], dim1=1, dim2=2)      # (T, D)
+    tr = diag[:, 0]
+    for i in range(1, D):
+        tr = tr + diag[:, i]
+    # a 0-dim tensor on the device, not a Python number: PyTorch's CUDA
+    # division by a host scalar multiplies by its reciprocal, the kernel divides
+    d_t = torch.full((), float(D), dtype=Jaug.dtype, device=Jaug.device)
+    ridge = 1e-6 * (tr / d_t) + 1e-6
+    idx = torch.arange(D, device=Jaug.device)
+    A = G[:, :, :D].clone()
+    A[:, idx, idx] = (A[:, idx, idx] + (lam + ridge)[:, None]) + frozen_diag[None]
+    return gauss_jordan_plain(A, G[:, :, D])
+
+
+def fused_normal_solve(Jaug: torch.Tensor, lam: torch.Tensor,
+                       frozen_diag: torch.Tensor) -> torch.Tensor:
+    """Solve (J^T J + (lam + ridge) I + diag(frozen_diag)) x = J^T r for every
+    slot, with ridge = 1e-6 * trace(J^T J) / D + 1e-6, reading Jaug = [J | r]
+    (T, R, D+1) once.  lam: (T,); frozen_diag: (D,), 1.0 on frozen
+    parameters.  Returns x (T, D); the caller applies dx = -x * free_mask."""
+    if Jaug.device.type == "cpu":
+        return fused_normal_plain(Jaug, lam, frozen_diag)
+    if Jaug.device.type != "cuda":
+        raise ValueError(f"fused_normal_solve: unsupported device {Jaug.device}")
+    if Jaug.dim() != 3:
+        raise ValueError(f"Jaug must be (T, R, D+1), got {tuple(Jaug.shape)}")
+    T, R, D1 = Jaug.shape
+    D = D1 - 1
+    if not 0 < D <= FUSED_MAX_D or R < 1:
+        raise ValueError(f"Jaug {tuple(Jaug.shape)}: need R >= 1 and 1 <= D <= {FUSED_MAX_D}")
+    if lam.shape != (T,) or frozen_diag.shape != (D,):
+        raise ValueError(f"lam must be ({T},) and frozen_diag ({D},), got "
+                         f"{tuple(lam.shape)} and {tuple(frozen_diag.shape)}")
+    for name, t in (("Jaug", Jaug), ("lam", lam), ("frozen_diag", frozen_diag)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.device != Jaug.device:
+            raise ValueError(f"{name} is on {t.device}, Jaug on {Jaug.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    x = torch.empty((T, D), dtype=torch.float32, device=Jaug.device)
+    if T == 0:
+        return x
+    lib = FUSED_NORMAL_GJ.lib()
+    stream = torch.cuda.current_stream(Jaug.device).cuda_stream
+    err = lib.fused_normal_gj_f32(Jaug.data_ptr(), lam.data_ptr(), frozen_diag.data_ptr(),
+                                  x.data_ptr(), T, R, D, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_normal_gj_f32 launch failed: cudaError {err}")
+    FUSED_NORMAL_GJ.launches += 1
+    return x
 
 
 def batched_spd_solve(A: torch.Tensor, g: torch.Tensor,
@@ -63,10 +142,10 @@ def batched_spd_solve(A: torch.Tensor, g: torch.Tensor,
     x = torch.empty((T, D), dtype=torch.float32, device=A.device)
     if T == 0:
         return x
-    lib = GJ_SOLVE.lib()
+    kernel = GJ_SOLVE if one_program else GJ_SOLVE_GRID
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = lib.gj_solve_f32(A.data_ptr(), g.data_ptr(), x.data_ptr(), T, D, stream)
+    err = kernel.lib().gj_solve_f32(A.data_ptr(), g.data_ptr(), x.data_ptr(), T, D, stream)
     if err != 0:
         raise RuntimeError(f"gj_solve_f32 launch failed: cudaError {err}")
-    GJ_SOLVE.launches += 1
+    kernel.launches += 1
     return x

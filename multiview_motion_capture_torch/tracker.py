@@ -2,9 +2,12 @@
 
 Port of `multiview_motion_capture_tpu/tracker.py` (the reference's
 `MvTracker` state machine, ref:src/motion_capture.py:288-963, as a function
-over a fixed-size slot-array state) for the main path: one ALS association
-over the whole [tracklets | detections] matrix, no appearance evidence, no
-motion prediction, IK on.  Every per-frame quantity stays on the step's
+over a fixed-size slot-array state) with IK on, no appearance evidence and
+no motion prediction.  Association is one ALS solve over the whole
+[tracklets | detections] matrix, or on wide rigs (`cfg.assoc_clusters > 1`)
+one batched solve over interleaved camera clusters merged into the global
+matrix; `cfg.ik_max_views` caps each track's LM solve at its best views.
+Every per-frame quantity stays on the step's
 device; the host reads two flags per frame (whether any slot updates and
 whether any spawns) so that the LM solves run only when needed, and the
 cold LM solve checks every few iterations whether a slot is still active.
@@ -48,7 +51,11 @@ from multiview_motion_capture_torch.pose_def import (
     common_kps_index,
     kps_index,
 )
-from multiview_motion_capture_torch.utils.precision import high_precision, resolve_device
+from multiview_motion_capture_torch.utils.precision import (
+    WORK_DTYPE,
+    high_precision,
+    resolve_device,
+)
 
 Tensor = torch.Tensor
 
@@ -134,20 +141,48 @@ class FrameOutput(NamedTuple):
 
 def _check_supported(cfg: PipelineConfig, use_ik: bool) -> None:
     unsupported = []
-    if cfg.assoc_clusters != 1:
-        unsupported.append("assoc_clusters > 1")
     if cfg.appearance_dim != 0:
         unsupported.append("appearance_dim > 0")
     if cfg.motion_gain != 0:
         unsupported.append("motion_gain != 0")
-    if cfg.ik_max_views is not None and cfg.ik_max_views < cfg.n_views:
-        unsupported.append("ik_max_views < n_views")
-    if cfg.ik_solver != "gj":
-        unsupported.append(f"ik_solver={cfg.ik_solver!r} (the port runs 'gj')")
+    if cfg.ik_solver not in ("gj", "gj_fused"):
+        unsupported.append(f"ik_solver={cfg.ik_solver!r} (the port runs 'gj' and 'gj_fused')")
     if not use_ik:
         unsupported.append("use_ik=False")
     if unsupported:
         raise NotImplementedError("not ported yet: " + ", ".join(unsupported))
+    if cfg.assoc_clusters > cfg.n_views:
+        raise ValueError(f"assoc_clusters={cfg.assoc_clusters} exceeds n_views={cfg.n_views}")
+
+
+class ClusterViews(NamedTuple):
+    """One camera cluster of the hierarchical association: its views padded
+    to the shared ceil width Vc (a short cluster repeats its first view),
+    and which of them are real."""
+
+    views: Tensor                  # (Vc,) int64 view indices
+    view_valid: Optional[Tensor]   # (Vc,) bool, None when all Vc are real
+    n_real: int
+
+
+def cluster_layout(cfg: PipelineConfig) -> Tuple[int, List[Tuple[np.ndarray, Optional[np.ndarray]]]]:
+    """Interleaved clusters (cluster c = views c, c + C, c + 2C, ...) at the
+    ceil width Vc = ceil(V / C): returns Vc and, per cluster, its padded
+    view indices and real-view mask (None when no view is a pad)."""
+    V, C = cfg.n_views, cfg.assoc_clusters
+    Vc = -(-V // C)
+    out = []
+    for c in range(C):
+        views = np.arange(c, V, C)
+        if len(views) < Vc:
+            # pad the short cluster by repeating its first view with every
+            # detection masked: it contributes nothing, as an invalid
+            # detection does
+            pad = np.full(Vc - len(views), views[0])
+            out.append((np.concatenate([views, pad]), np.arange(Vc) < len(views)))
+        else:
+            out.append((views, None))
+    return Vc, out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +200,13 @@ class TrackerContext:
     init_A: Tensor      # (N, rank) seeded ALS init factor
     device: torch.device
     use_ik: bool = True
+    # hierarchical association (cfg.assoc_clusters > 1): every cluster
+    # matrix has the same [T | Vc * P] layout, so one mask and one init
+    # factor serve all clusters
+    cluster_diag_mask: Optional[Tensor] = None   # (Nc, Nc) bool
+    cluster_init_A: Optional[Tensor] = None      # (Nc, rank)
+    clusters: Tuple[ClusterViews, ...] = ()
+    cluster_of_slot: Optional[Tensor] = None     # (V * P,) cluster of each detection slot
 
     @classmethod
     def build(cls, cams: CameraBank, cfg: PipelineConfig, use_ik: bool = True,
@@ -186,6 +228,12 @@ class TrackerContext:
             diag_mask=assoc.block_diag_mask(group_sizes),
             init_A=assoc.default_init_factor(cfg.n_matrix, cfg.als_max_rank),
         )
+        if cfg.assoc_clusters > 1:
+            Vc, _ = cluster_layout(cfg)
+            nc = cfg.max_tracks + Vc * cfg.max_people
+            consts["cluster_diag_mask"] = assoc.block_diag_mask(
+                (cfg.max_tracks,) + (cfg.max_people,) * Vc)
+            consts["cluster_init_A"] = assoc.default_init_factor(nc, cfg.als_max_rank)
         return context_constants_from_numpy(cfg, cams, consts, use_ik=use_ik,
                                             device=dev)
 
@@ -194,10 +242,11 @@ def context_constants_from_numpy(cfg: PipelineConfig, cams: CameraBank,
                                  arrays: Dict[str, np.ndarray], use_ik: bool = True,
                                  device="cuda") -> TrackerContext:
     """A `TrackerContext` from context constants given as numpy arrays:
-    `F_spatial`, `F_det`, `K_inv`, `diag_mask`, `init_A`, and optionally the
-    Skeleton fields `bone_dirs`, `side_bone_lens` (else the default
-    skeleton).  The JAX context's arrays carried across give a context whose
-    step starts from the very same constants."""
+    `F_spatial`, `F_det`, `K_inv`, `diag_mask`, `init_A`, with
+    `assoc_clusters > 1` also `cluster_diag_mask` and `cluster_init_A`, and
+    optionally the Skeleton fields `bone_dirs`, `side_bone_lens` (else the
+    default skeleton).  The JAX context's arrays carried across give a
+    context whose step starts from the very same constants."""
     dev = resolve_device(device)
     _check_supported(cfg, use_ik)
     high_precision()
@@ -205,18 +254,36 @@ def context_constants_from_numpy(cfg: PipelineConfig, cams: CameraBank,
     def f32(a):
         return torch.as_tensor(np.array(a), dtype=torch.float32, device=dev)
 
+    def mask(a):
+        return torch.as_tensor(np.array(a), dtype=torch.bool, device=dev)
+
     skel = Skeleton.default(device=dev)
     if "bone_dirs" in arrays:
         skel = skel._replace(bone_dirs=f32(arrays["bone_dirs"]),
                              side_bone_lens=f32(arrays["side_bone_lens"]))
+    cluster = {}
+    if cfg.assoc_clusters > 1:
+        missing = {"cluster_diag_mask", "cluster_init_A"} - set(arrays)
+        if missing:
+            raise ValueError(f"assoc_clusters > 1 needs {sorted(missing)}")
+        clusters = tuple(
+            ClusterViews(views=torch.as_tensor(v, dtype=torch.long, device=dev),
+                         view_valid=None if vv is None else mask(vv),
+                         n_real=len(range(c, cfg.n_views, cfg.assoc_clusters)))
+            for c, (v, vv) in enumerate(cluster_layout(cfg)[1]))
+        cluster_of_slot = np.repeat(np.arange(cfg.n_views) % cfg.assoc_clusters,
+                                    cfg.max_people)
+        cluster = dict(cluster_diag_mask=mask(arrays["cluster_diag_mask"]),
+                       cluster_init_A=f32(arrays["cluster_init_A"]).contiguous(),
+                       clusters=clusters,
+                       cluster_of_slot=torch.as_tensor(cluster_of_slot, device=dev))
     return TrackerContext(
         cfg=cfg, cams=cams.to(dev), skel=skel,
         F_spatial=f32(arrays["F_spatial"]), F_det=f32(arrays["F_det"]),
         K_inv=f32(arrays["K_inv"]),
-        diag_mask=torch.as_tensor(np.array(arrays["diag_mask"]), dtype=torch.bool,
-                                  device=dev),
+        diag_mask=mask(arrays["diag_mask"]),
         init_A=f32(arrays["init_A"]).contiguous(),
-        device=dev, use_ik=use_ik,
+        device=dev, use_ik=use_ik, **cluster,
     )
 
 
@@ -231,30 +298,60 @@ def _masked_sigmoid_similarity(dst: Tensor, valid2: Tensor, mean, std,
 
 
 def _track_det_distances(ctx: TrackerContext, state: TrackerState, kps: Tensor,
-                         det_valid: Tensor) -> Tensor:
+                         det_valid: Tensor, P_mats: Optional[Tensor] = None) -> Tensor:
     """Tracklet -> detection reprojection distances d23 (T, V, P), NaN where
     either side is invalid (the 2D-3D block of ref:src/motion_capture.py:
-    634-741; also feeds the track-rescue gate)."""
-    dev = kps.device
+    634-741; also feeds the track-rescue gate), in `WORK_DTYPE`.  `P_mats`
+    (V, 3, 4): the cameras of `kps`' views (a cluster's), all cameras by
+    default."""
+    if P_mats is None:
+        P_mats = ctx.cams.P
+    dev, wd = kps.device, WORK_DTYPE
     skel_idx = on_device(B18_COCO_SKEL_IDX, dev)
-    pts = state.pose3d[:, skel_idx, :]                            # (T, 15, 3)
-    sc3 = state.pose3d_score[:, skel_idx]
-    obs = kps[:, :, on_device(B18_COCO_OBS_IDX, dev), :]          # (V, P, 15, 3)
+    pts = state.pose3d[:, skel_idx, :].to(wd)                     # (T, 15, 3)
+    sc3 = state.pose3d_score[:, skel_idx].to(wd)
+    obs = kps[:, :, on_device(B18_COCO_OBS_IDX, dev), :].to(wd)   # (V, P, 15, 3)
     d23 = geom.masked_reprojection_error(
         pts[:, None, None], sc3[:, None, None], obs[None],
-        ctx.cams.P[None, :, None], ctx.cfg.reproj_min_kps_score)  # (T, V, P)
+        P_mats[None, :, None].to(wd), ctx.cfg.reproj_min_kps_score)  # (T, V, P)
     t_alive = state.active > 0
     return torch.where(t_alive[:, None, None] & det_valid[None],
                        d23, torch.full_like(d23, float("nan")))
 
 
+def _select_views(ctx: TrackerContext, kps: Tensor, det_valid: Tensor, F: Tensor,
+                  view_idx, view_valid):
+    """kps, det_valid, the (V, V) block of F and the cameras restricted to a
+    camera subset (a cluster; all views when `view_idx` is None); a view
+    whose `view_valid` is False (a dead pad) has every detection masked."""
+    if view_idx is None:
+        return kps, det_valid, F, ctx.cams.P
+    idx = torch.as_tensor(view_idx, dtype=torch.long, device=kps.device)
+    det_valid = det_valid[idx]
+    if view_valid is not None:
+        vv = torch.as_tensor(view_valid, dtype=torch.bool, device=kps.device)
+        det_valid = det_valid & vv[:, None]
+    return kps[idx], det_valid, F[idx][:, idx], ctx.cams.P[idx]
+
+
 def _spatial_time_similarity(ctx: TrackerContext, state: TrackerState, kps: Tensor,
-                             det_valid: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+                             det_valid: Tensor, view_idx=None,
+                             view_valid=None) -> Tuple[Tensor, Tensor, Tensor]:
     """The spatial-time similarity matrix (ref:src/motion_capture.py:634-756),
-    layout [T tracklet slots | view0 slots | view1 slots | ...].
-    Returns (sim (N, N), elem_valid (N,), d23 (T, V, P))."""
+    layout [T tracklet slots | view0 slots | view1 slots | ...].  `view_idx`
+    restricts it to a camera subset (a cluster), `view_valid` marks that
+    subset's dead pad views (see `_select_views`).
+    Returns (sim (N, N), elem_valid (N,), d23 (T, V, P)).
+
+    Formed in `WORK_DTYPE` and rounded once to f32, as the spatial-only
+    matrix below: given the same state, the card and the CPU give the ALS
+    the same matrix."""
     cfg = ctx.cfg
-    T, V, P = cfg.max_tracks, cfg.n_views, cfg.max_people
+    out_dt = kps.dtype
+    kps, det_valid, F_det, P_mats = _select_views(ctx, kps, det_valid, ctx.F_det,
+                                                  view_idx, view_valid)
+    kps, F_det = kps.to(WORK_DTYPE), F_det.to(WORK_DTYPE)
+    T, V, P = cfg.max_tracks, kps.shape[0], cfg.max_people
     N = T + V * P
     dev = kps.device
     nan = float("nan")
@@ -262,14 +359,14 @@ def _spatial_time_similarity(ctx: TrackerContext, state: TrackerState, kps: Tens
     # 2D-2D epipolar block (V, P, V, P)
     ka = kps[:, :, None, None]
     kb = kps[None, None]
-    Fab = ctx.F_det[:, None, :, None]
+    Fab = F_det[:, None, :, None]
     d22 = geom.masked_symmetric_epipolar_error(ka, kb, Fab, cfg.epipolar_min_kps_score)
     same_view = torch.eye(V, dtype=torch.bool, device=dev)[:, None, :, None]
     pair_valid = det_valid[:, :, None, None] & det_valid[None, None]
     d22 = torch.where(same_view | ~pair_valid, torch.full_like(d22, nan), d22)
 
     # tracklet -> 2D reprojection block (T, V, P)
-    d23 = _track_det_distances(ctx, state, kps, det_valid)
+    d23 = _track_det_distances(ctx, state, kps, det_valid, P_mats)
     t_alive = state.active > 0
 
     d23f = d23.reshape(T, V * P)
@@ -293,26 +390,30 @@ def _spatial_time_similarity(ctx: TrackerContext, state: TrackerState, kps: Tens
                                      cfg.affinity_sigmoid_scale)
     sim = torch.where(sim < cfg.st_sim_floor, torch.zeros_like(sim), sim)
     sim = torch.clamp(sim, max=1.0)
-    return sim, elem_valid, d23
+    return sim.to(out_dt), elem_valid, d23.to(out_dt)
 
 
-def _spatial_similarity(ctx: TrackerContext, kps: Tensor,
-                        det_valid: Tensor) -> Tuple[Tensor, Tensor]:
+def _spatial_similarity(ctx: TrackerContext, kps: Tensor, det_valid: Tensor,
+                        view_idx=None, view_valid=None) -> Tuple[Tensor, Tensor]:
     """The spatial-only similarity (ref:src/motion_capture.py:597-631 +
     ref:src/mv_math_util.py:320-351): raw epipolar distances, 50 for
     same-view pairs, diagonal 0, z-normalized by the matrix's own masked
-    mean/std, sigmoid.
+    mean/std, sigmoid.  `view_idx` / `view_valid` restrict it to a camera
+    subset as in `_spatial_time_similarity`; the z-statistics are then the
+    subset matrix's own, as the reference normalizes whatever it solves.
 
-    Formed in f64 and rounded once to f32: the card and the CPU then give
-    the ALS the same matrix bit for bit.  That matters here because the ALS
-    on a spatial-only matrix (no live track) may not converge within its
-    iteration cap, and its grouping then depends on every rounding of W."""
+    Formed in `WORK_DTYPE` and rounded once to f32: the card and the CPU
+    then give the ALS the same matrix bit for bit.  That matters because the
+    ALS may not converge within its iteration cap, and its grouping then
+    depends on every rounding of W."""
     cfg = ctx.cfg
-    T, V, P = cfg.max_tracks, cfg.n_views, cfg.max_people
+    kps, det_valid, F_spatial, _ = _select_views(ctx, kps, det_valid, ctx.F_spatial,
+                                                 view_idx, view_valid)
+    T, V, P = cfg.max_tracks, kps.shape[0], cfg.max_people
     N = T + V * P
     dev = kps.device
 
-    d = geom.projected_distance_all_pairs(kps.double(), ctx.F_spatial.double())
+    d = geom.projected_distance_all_pairs(kps.to(WORK_DTYPE), F_spatial.to(WORK_DTYPE))
     same_view = torch.eye(V, dtype=torch.bool, device=dev)[:, None, :, None]
     d = torch.where(same_view, torch.full_like(d, cfg.spatial_fill_distance), d)
     dst = d.reshape(V * P, V * P)
@@ -351,6 +452,17 @@ def _gather_obs(kps: Tensor, matched_pose: Tensor, exists: Tensor) -> Tuple[Tens
     return obs * w[:, :, None, None], w
 
 
+def _top_views(obs: Tensor, w: Tensor, P: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """Each slot's k highest-score views (summed keypoint scores plus the
+    view weight; unmatched views score 0, the sum in `WORK_DTYPE`), stable
+    in view order: obs (T, k, K, 3), weights (T, k) and per-slot projections
+    (T, k, 3, 4)."""
+    score = obs[..., 2].to(WORK_DTYPE).sum(dim=-1) + w            # (T, V)
+    idx = torch.argsort(-score, dim=1, stable=True)[:, :k]
+    obs_k = torch.gather(obs, 1, idx[:, :, None, None].expand(-1, -1, *obs.shape[2:]))
+    return obs_k, torch.gather(w, 1, idx), P[idx]
+
+
 class Association(NamedTuple):
     """One frame's association: the ALS match matrix and what the update
     stage needs beside it."""
@@ -371,7 +483,10 @@ def predict(state: TrackerState) -> TrackerState:
 def associate(ctx: TrackerContext, state: TrackerState, kps: Tensor,
               det_valid: Tensor) -> Association:
     """Steps 2-3: the similarity (spatial-time when any track is alive,
-    spatial otherwise, ref:829-835) and its ALS solve."""
+    spatial otherwise, ref:829-835) and its ALS solve; per camera cluster
+    when `cfg.assoc_clusters > 1`."""
+    if ctx.cfg.assoc_clusters > 1:
+        return _clustered_association(ctx, state, kps, det_valid)
     cfg = ctx.cfg
     any_alive = (state.active > 0).any()
     sim_st, ev_st, d23 = _spatial_time_similarity(ctx, state, kps, det_valid)
@@ -385,6 +500,97 @@ def associate(ctx: TrackerContext, state: TrackerState, kps: Tensor,
         stable_iters=cfg.als_stable_iters)
     return Association(x_bin=als.x_bin, n_iters=als.n_iters, elem_valid=elem_valid,
                        d23=d23, any_alive=any_alive)
+
+
+def _clustered_association(ctx: TrackerContext, state: TrackerState, kps: Tensor,
+                           det_valid: Tensor) -> Association:
+    """Hierarchical association for wide rigs (the JAX package's
+    `_clustered_association`, tracker.py:581-790).
+
+    Cameras form `cfg.assoc_clusters` interleaved clusters (`cluster_layout`;
+    on a ring every cluster spans the full angular range).  Each cluster's
+    [T track slots | its Vc views] similarity is built from its own views
+    only, and all C ALS problems are solved in one batched launch
+    (`als_kernel.match_als_batched`).  The per-cluster binarized matches
+    are scattered into the global (N, N) matrix: track rows appear in every
+    cluster, so a tracked person's identity merges through the track in
+    the closure; the detection blocks land at the cluster's strided views.
+    New people (detection-only groups of >= 2 views) are linked across
+    clusters when their triangulated mean-keypoint centroids lie within
+    `cfg.cluster_merge_m`.  Returns the association over the global layout
+    with `n_iters` the sum of the clusters' iterations."""
+    cfg = ctx.cfg
+    T, V, P = cfg.max_tracks, cfg.n_views, cfg.max_people
+    N, C = cfg.n_matrix, cfg.assoc_clusters
+    Vc = ctx.clusters[0].views.shape[0]
+    dev = kps.device
+    i32 = torch.int32
+
+    any_alive = (state.active > 0).any()
+    dv_flat = det_valid.reshape(-1)
+    ev_st = torch.cat([state.active > 0, dv_flat])
+    ev_sp = torch.cat([torch.zeros(T, dtype=torch.bool, device=dev), dv_flat])
+    elem_valid = torch.where(any_alive, ev_st, ev_sp)
+    d23 = _track_det_distances(ctx, state, kps, det_valid).to(kps.dtype)
+
+    subs = []
+    for cl in ctx.clusters:
+        sim_st, _, _ = _spatial_time_similarity(ctx, state, kps, det_valid,
+                                                view_idx=cl.views, view_valid=cl.view_valid)
+        sim_sp, _ = _spatial_similarity(ctx, kps, det_valid,
+                                        view_idx=cl.views, view_valid=cl.view_valid)
+        subs.append(torch.where(any_alive, sim_st, sim_sp))
+    als = als_kernel.match_als_batched(
+        torch.stack(subs), ctx.cluster_diag_mask, ctx.cluster_init_A,
+        alpha=cfg.als_alpha, beta=cfg.als_beta, mu0=cfg.als_mu,
+        tol=cfg.als_tol, max_iter=cfg.als_max_iter,
+        stable_iters=cfg.als_stable_iters)
+    xb = als.x_bin                                              # (C, Nc, Nc)
+
+    # scatter: cluster c's detections are the strided views c::C of the
+    # (V, P) grid; the pad views (if any) sit at the end and are dropped.
+    # Blocks are disjoint except the track-track corner, which ORs.
+    x_tt = xb[:, :T, :T].any(dim=0)
+    x_td = torch.zeros((T, V, P), dtype=torch.bool, device=dev)
+    x_dd = torch.zeros((V, P, V, P), dtype=torch.bool, device=dev)
+    for c, cl in enumerate(ctx.clusters):
+        n = cl.n_real
+        x_td[:, c::C] = xb[c, :T, T:].reshape(T, Vc, P)[:, :n]
+        x_dd[c::C, :, c::C] = xb[c, T:, T:].reshape(Vc, P, Vc, P)[:n, :, :n]
+    x_td = x_td.reshape(T, V * P)
+    x_global = torch.cat([torch.cat([x_tt, x_td], dim=1),
+                          torch.cat([x_td.T, x_dd.reshape(V * P, V * P)], dim=1)], dim=0)
+
+    # cross-cluster merge of new-person groups: per candidate leader, its
+    # first member in each view; the per-detection mean keypoint (computed
+    # once) triangulates to one 3D centroid per candidate
+    g0 = assoc.extract_groups(x_global, elem_valid)
+    rep_det, member_det = g0.rep[T:], g0.member[T:]
+    e_global = torch.arange(T, N, dtype=i32, device=dev)
+    kps_w = kps.to(WORK_DTYPE)
+    w_all = kps[..., 2] > cfg.epipolar_min_kps_score              # (V, P, K)
+    cnt_all = w_all.sum(dim=-1).clamp(min=1)
+    mean_uv = (kps_w[..., :2] * w_all[..., None]).sum(dim=2) / cnt_all[..., None]  # (V, P, 2)
+    cand = (member_det.reshape(V, P)[None]
+            & (rep_det.reshape(V, P)[None] == e_global[:, None, None]))  # (VP, V, P)
+    exists = cand.any(dim=-1)                                     # (VP, V)
+    first = cand.to(i32).argmax(dim=-1)                           # (VP, V)
+    uv = mean_uv[torch.arange(V, device=dev)[None, :], first]     # (VP, V, 2)
+    point_obs = torch.cat([uv, exists.to(WORK_DTYPE)[..., None]], dim=-1)[:, :, None, :]
+    tri = triangulate_points(ctx.cams.P.to(WORK_DTYPE), ctx.K_inv.to(WORK_DTYPE),
+                             point_obs, exists, 0.5, 0)
+    cents = tri[:, 0, :3]                                         # (VP, 3)
+    # leaders of detection-only groups with >= 2 views (groups holding a
+    # track merge through the track)
+    ok = ((rep_det == e_global) & member_det & (rep_det >= T)
+          & (exists.sum(dim=1) >= 2))
+    cents = torch.where(ok[:, None], cents, torch.full_like(cents, 1e6))
+    d = torch.linalg.vector_norm(cents[:, None] - cents[None, :], dim=-1)
+    cross = ctx.cluster_of_slot[:, None] != ctx.cluster_of_slot[None, :]
+    link = (d < cfg.cluster_merge_m) & cross & ok[:, None] & ok[None, :]
+    x_global[T:, T:] |= link
+    return Association(x_bin=x_global, n_iters=als.n_iters.sum(dtype=i32),
+                       elem_valid=elem_valid, d23=d23, any_alive=any_alive)
 
 
 def make_update(ctx: TrackerContext):
@@ -405,6 +611,8 @@ def make_update(ctx: TrackerContext):
     lm_kw = dict(eps=cfg.ik_proj_eps, lam0=cfg.ik_lm_damping_init,
                  lam_up=cfg.ik_lm_damping_up, lam_down=cfg.ik_lm_damping_down,
                  solver=cfg.ik_solver, ftol=cfg.ik_ftol, xtol=cfg.ik_xtol)
+    top_k = cfg.ik_max_views if (cfg.ik_max_views is not None
+                                 and cfg.ik_max_views < V) else 0
 
     def update(state: TrackerState, kps: Tensor, det_valid: Tensor, a: Association):
         tsu = state.time_since_update
@@ -530,11 +738,20 @@ def make_update(ctx: TrackerContext):
         new_obs, new_w = _gather_obs(kps, s_match, s_exists)
         new_w = new_w * spawned[:, None].to(new_w.dtype)
         any_update, any_spawn = torch.stack([update_mask.any(), spawned.any()]).tolist()
+        if top_k:
+            # wide rigs: each track's LM solve sees only its k highest-score
+            # matched views, with per-slot projections; the spawn
+            # triangulation below keeps all views
+            upd_obs_ik, upd_w_ik, P_upd = _top_views(upd_obs, upd_w, ctx.cams.P, top_k)
+            new_obs_ik, new_w_ik, P_new = _top_views(new_obs, new_w, ctx.cams.P, top_k)
+        else:
+            upd_obs_ik, upd_w_ik, P_upd = upd_obs, upd_w, ctx.cams.P
+            new_obs_ik, new_w_ik, P_new = new_obs, new_w, ctx.cams.P
 
         state_params = ik_ops.IkParams(state.root, state.euler, state.side_lens)
         if any_update:
             warm_params, warm_joints = ik_ops.solve_two_stage(
-                state_params, skel, upd_obs, upd_w, ctx.cams.P,
+                state_params, skel, upd_obs_ik, upd_w_ik, P_upd,
                 n_iters=cfg.ik_warm_iters, stages=cfg.ik_warm_stages, **lm_kw)
         else:
             warm_params, warm_joints = state_params, state.pose3d
@@ -542,18 +759,20 @@ def make_update(ctx: TrackerContext):
             # cold init: triangulate COCO+spine observations, root = hip
             # midpoint (ref:src/inverse_kinematics.py:389-397), geometric
             # angle init
-            obs18 = ik_ops.add_mid_spine(new_obs)
-            tri = triangulate_points(ctx.cams.P, ctx.K_inv, obs18, new_w > 0,
+            # (both in WORK_DTYPE, rounded once)
+            wd = WORK_DTYPE
+            obs18 = ik_ops.add_mid_spine(new_obs).to(wd)
+            tri = triangulate_points(ctx.cams.P.to(wd), ctx.K_inv.to(wd), obs18, new_w > 0,
                                      cfg.triangulate_min_score,
                                      cfg.triangulate_refine_iters)   # (T, 18, 4)
             # degenerate 2-view matches can triangulate near infinity
             tri = torch.nan_to_num(tri).clamp(-100.0, 100.0)
-            cold_roots = 0.5 * (tri[:, _LHIP, :3] + tri[:, _RHIP, :3])
-            cold_euler = ik_ops.geometric_init(tri, skel)
+            cold_roots = (0.5 * (tri[:, _LHIP, :3] + tri[:, _RHIP, :3])).to(kps.dtype)
+            cold_euler = ik_ops.geometric_init(tri, skel.to(wd)).to(kps.dtype)
             init = ik_ops.IkParams(root=cold_roots, euler=cold_euler,
                                    side_lens=skel.side_bone_lens.expand(T, -1))
             cold_params, cold_joints = ik_ops.solve_two_stage(
-                init, skel, new_obs, new_w, ctx.cams.P,
+                init, skel, new_obs_ik, new_w_ik, P_new,
                 n_iters=cfg.ik_cold_iters, stages=cfg.ik_cold_stages, **lm_kw)
         else:
             cold_params, cold_joints = state_params, state.pose3d

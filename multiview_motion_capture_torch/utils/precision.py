@@ -6,10 +6,23 @@ is TF32.  Pixel-scale geometry (coordinates ~1e3) and the LM normal
 equations (J^T J at ik.py) lose about three decimal digits under TF32, which
 drifts poses and flips near-threshold association decisions, so every
 context pins full f32.
+
+`WORK_DTYPE` is the precision of the tracker's plain tensor math between
+the kernels (similarities, triangulation, the cold-start init, forward
+kinematics and the LM residuals, jacobians and normal equations).  It runs
+in f64 and rounds once to f32 wherever the JAX package holds an f32 value:
+the state, the ALS input W and the LM's [A | g] or [J | r].  CPU and card
+then differ only in the last f64 bits of a sum or a sine, which round to
+the same f32 (except for one value in ~1e8), so both devices hand the
+kernels the same inputs.  That matters because the ALS at
+the wide rig's N = 336 does not settle within its cap, and there one unit
+in the last place of W changes the grouping.
 """
 from __future__ import annotations
 
 import torch
+
+WORK_DTYPE = torch.float64
 
 
 def high_precision() -> None:

@@ -2,10 +2,12 @@
 """Where the PyTorch port's decisions part from the JAX package's, on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py [--frames 300] [--draws 12]
+    JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study wide [--frames 60]
+    JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study cold [--draws 2]
 
-Runs the synthetic scene of the port's smoke test (synthetic_sequence(300
-frames, 4 people, 5 views, seed 0), SHELF_BENCH) through both packages on
-the CPU and prints JSON lines:
+The default study runs the synthetic scene of the port's smoke test
+(synthetic_sequence(300 frames, 4 people, 5 views, seed 0), SHELF_BENCH)
+through both packages on the CPU and prints JSON lines:
 
 - "frame0": the first frame's ALS problem (spatial-only similarity, no live
   track) solved by the JAX `match_als` (f32), the JAX fused kernel in
@@ -29,6 +31,37 @@ the CPU and prints JSON lines:
   the poses move.
 - "quality": `pipeline.run` tracklet structure and reprojection error of
   both packages.
+
+`--study wide` runs the wide-rig scene (synthetic_sequence(60 frames, 10
+people, 64 views, seed 0, noise 1 px, drop 0.05), PipelineConfig.wide(64):
+two interleaved camera clusters) and prints:
+
+- "wide_reference": the JAX package's `pipeline.run` quality (tracklets,
+  top lengths, mean / median reprojection, degenerate poses), its per-frame
+  ALS iterations and per-frame decision digests (`eval.decision_digests`):
+  the constants `chip_smoke.py` holds the card's wide run against;
+- "wide_sequence": the port's run on the CPU over the same frames: the
+  same quality numbers, the first frame whose decisions differ from the
+  JAX run's, and both runs' ALS iterations there;
+- "wide_stepwise": every frame stepped by both packages from the same
+  carried state: the frames whose decisions differ, with both packages'
+  ALS iterations; for the first of them, each cluster's ALS problem solved
+  by the JAX `match_als` and by the port's plain version on the same W:
+  iterations, binarized entries that differ, and the smallest |X - 0.5|
+  over the valid entries (the binarization margin); the same for the
+  "wide_sequence" run's first diverging frame, from the JAX run's state.
+
+`--study cold` runs the 10-view, 3-cluster scene of
+tests/test_torch_clusters.py (synthetic_sequence(6 frames, 3 people, 10
+views), SHELF_BENCH with assoc_clusters=3, the JAX side on its XLA ALS) at
+seeds 1 and 2 and prints one "cold_sensitivity" line per seed: the first
+frame where each decision differs between the packages, the largest pose
+difference on each frame where both updated a slot, and for every spawn
+frame's cold LM solve, with the inputs the port's run gave it: for each
+spawned slot, its views, the joint difference between the two packages'
+solvers on those identical inputs, and for `--draws` random +-1e-7 steps of
+the initial angles, how far each package's solution moves (largest joint
+shift, m).
 
 It is a study script of the port, not part of it: it imports both packages.
 """
@@ -199,13 +232,216 @@ def ik_sensitivity_study(tctx, tb, n_frames: int) -> None:
           "p99_joint_pose_diff_m": float(np.percentile(d, 99))})
 
 
+def _quality(tracklets, seq, ev) -> dict:
+    m = ev.reprojection_metrics(tracklets, seq.batch, seq.cameras)
+    return {"n_tracklets": m.n_tracklets, "top_lengths": m.lengths[:10],
+            "mean_reproj_px": m.mean_reproj_px, "median_reproj_px": m.median_reproj_px,
+            "n_degenerate_poses": m.n_degenerate_poses}
+
+
+def _cluster_margins(jctx, tctx, jstate, kps, valid, cfg) -> list:
+    """Each cluster's ALS problem at one frame, from the same state: the JAX
+    `match_als` (f32) and the port's plain version on each package's own W."""
+    kw = dict(alpha=cfg.als_alpha, beta=cfg.als_beta, mu0=cfg.als_mu, tol=cfg.als_tol,
+              max_iter=cfg.als_max_iter, stable_iters=cfg.als_stable_iters)
+    tstate = t_tracker.from_numpy_state(
+        {k: np.asarray(getattr(jstate, k)) for k in t_tracker.TrackerState.__dataclass_fields__},
+        device="cpu")
+    alive = bool(np.asarray(jstate.active).max() > 0)
+    out = []
+    mask = np.asarray(jctx.cluster_diag_mask)
+    init = np.asarray(jctx.cluster_init_A)
+    for c, cl in enumerate(tctx.clusters):
+        views = cl.views.numpy()
+        vv = None if cl.view_valid is None else cl.view_valid.numpy()
+        jk, jv = jnp.asarray(kps), jnp.asarray(valid)
+        tk, tv = torch.as_tensor(kps), torch.as_tensor(valid)
+        if alive:
+            Wj, evj, _ = j_tracker._spatial_time_similarity(jctx, jstate, jk, jv, view_idx=views,
+                                                           view_valid=vv)
+            Wt, _, _ = t_tracker._spatial_time_similarity(tctx, tstate, tk, tv, view_idx=cl.views,
+                                                         view_valid=cl.view_valid)
+        else:
+            Wj, evj = j_tracker._spatial_similarity(jctx, jk, jv, view_idx=views, view_valid=vv)
+            Wt, _ = t_tracker._spatial_similarity(tctx, tk, tv, view_idx=cl.views,
+                                                 view_valid=cl.view_valid)
+        ev = np.asarray(evj)
+        valid2 = ev[:, None] & ev[None, :] & ~np.eye(len(ev), dtype=bool)
+        rj = j_assoc.match_als(Wj, jnp.asarray(mask), jnp.asarray(init), **kw)
+        rt = t_assoc.match_als(Wt, torch.as_tensor(mask), torch.as_tensor(init), **kw)
+        xj, xt = np.asarray(rj.x), rt.x.numpy()
+        flips = (np.asarray(rj.x_bin) != rt.x_bin.numpy()) & valid2
+        out.append({"cluster": c, "w_max_abs_diff": float(np.abs(np.asarray(Wj) - Wt.numpy()).max()),
+                    "iters_jax": int(rj.n_iters), "iters_port": int(rt.n_iters),
+                    "x_bin_entries_differing": int(flips.sum() // 2),
+                    "min_margin_jax": float(np.abs(xj - 0.5)[valid2].min()),
+                    "min_margin_port": float(np.abs(xt - 0.5)[valid2].min()),
+                    "flipped_min_dist_from_half_jax": (float(np.abs(xj - 0.5)[flips].min())
+                                                       if flips.any() else None),
+                    "flipped_min_dist_from_half_port": (float(np.abs(xt - 0.5)[flips].min())
+                                                        if flips.any() else None)})
+    return out
+
+
+def wide_study(n_frames: int) -> None:
+    from multiview_motion_capture_torch.config import PipelineConfig as TConfig
+    from multiview_motion_capture_tpu.config import PipelineConfig as JConfig
+
+    jcfg = JConfig.wide(64, max_frames=None)
+    tcfg = TConfig.wide(64, max_frames=None)
+    kw = dict(n_frames=n_frames, n_people=10, n_views=64, seed=0, noise_px=1.0, drop_prob=0.05)
+    js, ts = j_synth(cfg=jcfg, **kw), t_synth(cfg=tcfg, **kw)
+    assert np.array_equal(js.batch.kps, ts.batch.kps)
+    jb, tb = j_filter(js.batch, jcfg), t_filter(ts.batch, tcfg)
+    jctx = j_tracker.TrackerContext.build(js.cameras, jcfg)
+    tctx = t_tracker.TrackerContext.build(ts.cameras, tcfg, device="cpu")
+
+    jr = j_pipeline.run(js.batch, js.cameras, jcfg, use_ik=True)
+    _, jo = j_tracker.run_offline(jctx, jnp.asarray(jb.kps), jnp.asarray(jb.valid))
+    jo = jax.device_get(jo)
+    j_dig = t_eval.decision_digests(jo)
+    emit({"study": "wide_reference", "frames": n_frames, **_quality(jr.tracklets, js, j_eval),
+          "als_iters": np.asarray(jo.als_iters).tolist(), "decision_digests": j_dig})
+
+    _, to = t_tracker.run_offline(tctx, tb.kps, tb.valid)
+    to = t_tracker.outputs_to_numpy(to)
+    t_dig = t_eval.decision_digests(to)
+    first = next((f for f in range(n_frames) if j_dig[f] != t_dig[f]), None)
+    tl = t_pipeline.filter_ghost_tracklets(t_tracker.assemble_tracklets(to), tcfg.min_track_length)
+    emit({"study": "wide_sequence", "frames": n_frames, **_quality(tl, ts, t_eval),
+          "first_diverging_frame": first,
+          "als_iters_there": (None if first is None else
+                              {"jax": int(jo.als_iters[first]), "port": int(to.als_iters[first])}),
+          "als_iters": to.als_iters.tolist()})
+
+    jstep = jax.jit(j_tracker.make_step(jctx))
+    tstep = t_tracker.make_step(tctx)
+    jstate = j_tracker.TrackerState.zeros(jcfg)
+    differ, margins, seq_margins = [], None, None
+    for f in range(n_frames):
+        if f == first:
+            seq_margins = {"frame": f, "clusters": _cluster_margins(
+                jctx, tctx, jstate, jb.kps[f], jb.valid[f], jcfg)}
+        arrays = {k: np.asarray(getattr(jstate, k))
+                  for k in t_tracker.TrackerState.__dataclass_fields__}
+        _, o = tstep(t_tracker.from_numpy_state(arrays, device="cpu"),
+                     torch.as_tensor(tb.kps[f]), torch.as_tensor(tb.valid[f]))
+        new_jstate, o_j = jstep(jstate, (jnp.asarray(jb.kps[f]), jnp.asarray(jb.valid[f])))
+        o_j = jax.device_get(o_j)
+        if any(not np.array_equal(np.asarray(getattr(o_j, k)), getattr(o, k).numpy())
+               for k in DECISIONS):
+            differ.append({"frame": f, "als_iters_jax": int(o_j.als_iters),
+                           "als_iters_port": int(o.als_iters)})
+            if margins is None:
+                margins = {"frame": f, "clusters": _cluster_margins(
+                    jctx, tctx, jstate, jb.kps[f], jb.valid[f], jcfg)}
+        jstate = new_jstate
+    emit({"study": "wide_stepwise", "frames": n_frames, "frames_with_differing_decisions": differ,
+          "first_differing_frame_clusters": margins,
+          "sequence_first_diverging_frame_clusters": seq_margins})
+
+
+def cold_sensitivity_study(seeds, draws: int, n_frames: int = 6, delta: float = 1e-7) -> None:
+    import functools
+
+    from multiview_motion_capture_torch.ops import ik as t_ik
+    from multiview_motion_capture_tpu.ops import ik as j_ik
+
+    for seed in seeds:
+        change = dict(n_views=10, assoc_clusters=3, max_frames=None)
+        jcfg = dataclasses.replace(J_SHELF_BENCH, als_backend="xla", **change)
+        tcfg = dataclasses.replace(T_SHELF_BENCH, **change)
+        assert tcfg.ik_cold_iters != tcfg.ik_warm_iters
+        kw = dict(n_frames=n_frames, n_people=3, n_views=10, seed=seed)
+        js, ts = j_synth(cfg=jcfg, **kw), t_synth(cfg=tcfg, **kw)
+        jb, tb = j_filter(js.batch, jcfg), t_filter(ts.batch, tcfg)
+        jctx = j_tracker.TrackerContext.build(js.cameras, jcfg)
+        tctx = t_tracker.TrackerContext.build(ts.cameras, tcfg, device="cpu")
+        _, jo = j_tracker.run_offline(jctx, jnp.asarray(jb.kps), jnp.asarray(jb.valid))
+        jo = jax.device_get(jo)
+
+        # the port's run, keeping each cold LM solve's inputs (one call per
+        # frame that spawns a track)
+        cold, solve = [], t_ik.solve_two_stage
+
+        def recording(init, skel, obs, w, P, n_iters, **lm_kw):
+            if n_iters == tcfg.ik_cold_iters:
+                cold.append((init, obs, w, P, lm_kw))
+            return solve(init, skel, obs, w, P, n_iters, **lm_kw)
+
+        t_ik.solve_two_stage = recording
+        try:
+            _, to = t_tracker.run_offline(tctx, tb.kps, tb.valid)
+        finally:
+            t_ik.solve_two_stage = solve
+        to = t_tracker.outputs_to_numpy(to)
+
+        first = {}
+        for f in DECISIONS:
+            bad = np.nonzero((np.asarray(getattr(jo, f)) != getattr(to, f))
+                             .reshape(n_frames, -1).any(1))[0]
+            first[f] = int(bad[0]) if len(bad) else None
+        both = np.asarray(jo.updated) & to.updated
+        pose_by_frame = [float(np.abs(np.asarray(jo.pose3d)[f] - to.pose3d[f])[both[f]].max())
+                         if both[f].any() else None for f in range(n_frames)]
+
+        spawn_frames = np.nonzero(to.spawned.any(1))[0].tolist()
+        assert len(spawn_frames) == len(cold)
+        solves = []
+        for f, (init, obs, w, P, lm_kw) in zip(spawn_frames, cold):
+            j_solve = jax.jit(functools.partial(j_ik.solve_two_stage, n_iters=tcfg.ik_cold_iters,
+                                                interpret=True, **lm_kw))
+
+            def both_solvers(euler):
+                t_j = solve(init._replace(euler=euler), tctx.skel, obs, w, P,
+                            tcfg.ik_cold_iters, **lm_kw)[1].numpy()
+                j_init = j_ik.IkParams(jnp.asarray(init.root.numpy()), jnp.asarray(euler.numpy()),
+                                       jnp.asarray(init.side_lens.numpy()))
+                j_j = np.asarray(j_solve(j_init, jctx.skel, jnp.asarray(obs.numpy()),
+                                         jnp.asarray(w.numpy()), jnp.asarray(P.numpy()))[1])
+                return t_j, j_j
+
+            slots = np.nonzero(to.spawned[f])[0]
+            t0, j0 = both_solvers(init.euler)
+            shifts = []
+            for d in range(draws):
+                rng = np.random.RandomState(d)
+                step = torch.as_tensor(delta * rng.choice([-1.0, 1.0], tuple(init.euler.shape)),
+                                       dtype=init.euler.dtype)
+                euler = init.euler + step
+                t1, j1 = both_solvers(euler)
+                shifts.append({
+                    "max_euler_change": float((euler - init.euler).abs().max()),
+                    "port_joint_shift_m": [float(np.abs(t1[s] - t0[s]).max()) for s in slots],
+                    "jax_joint_shift_m": [float(np.abs(j1[s] - j0[s]).max()) for s in slots]})
+            solves.append({"frame": f, "slots": slots.tolist(),
+                           "views": (w.numpy()[slots] > 0).sum(1).tolist(),
+                           "port_vs_jax_same_inputs_m": [float(np.abs(t0[s] - j0[s]).max())
+                                                         for s in slots],
+                           "draws": shifts})
+        emit({"study": "cold_sensitivity", "seed": seed, "frames": n_frames,
+              "first_diverging_frame": first, "max_pose_diff_m_by_frame": pose_by_frame,
+              "cold_solves": solves})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--frames", type=int, default=300)
-    ap.add_argument("--draws", type=int, default=12)
+    ap.add_argument("--study", choices=("shelf", "wide", "cold"), default="shelf")
+    ap.add_argument("--frames", type=int, default=None,
+                    help="frames of the scene (300 for shelf, 60 for wide)")
+    ap.add_argument("--draws", type=int, default=None,
+                    help="perturbation draws (12 for shelf, 2 for cold)")
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(1)
+    if args.study == "cold":
+        cold_sensitivity_study((1, 2), args.draws or 2)
+        return
+    args.draws = args.draws or 12
+    if args.study == "wide":
+        wide_study(args.frames or 60)
+        return
+    args.frames = args.frames or 300
 
     jcfg = dataclasses.replace(J_SHELF_BENCH, max_frames=None)
     tcfg = dataclasses.replace(T_SHELF_BENCH, max_frames=None)

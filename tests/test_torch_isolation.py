@@ -47,16 +47,25 @@ def test_port_modules_mirror_the_jax_package():
 
 
 def test_cuda_sources_exist_and_are_named_by_the_build_helper():
-    names = {k.source for k in cuda_lib.ALL_KERNELS}
-    assert names == {"als.cu", "gj_solve.cu"}
+    names = {lib.source for lib in cuda_lib.ALL_LIBRARIES}
+    assert names == {"als.cu", "gj_solve.cu", "fused_normal_gj.cu"}
     assert {p.name for p in (PKG / "csrc").glob("*.cu")} == names
-    for k in cuda_lib.ALL_KERNELS:
-        text = k.source_path.read_text()
+    for lib in cuda_lib.ALL_LIBRARIES:
+        text = lib.source_path.read_text()
         assert "Replaces: multiview_motion_capture_tpu/ops/" in text
-        for fn in k.signatures:
+        for fn in lib.signatures:
             assert f'extern "C" int {fn}(' in text, fn
-        lib = k.library_path()
-        assert lib.parent == cuda_lib.BUILD_DIR and lib.suffix == ".so"
+        so = lib.library_path()
+        assert so.parent == cuda_lib.BUILD_DIR and so.suffix == ".so"
+        assert so.name.startswith(f"lib{lib.name}_")
+    # one library per source; every kernel-table entry launches one of them
+    # and keeps its own launch count
+    assert len({lib.library_path() for lib in cuda_lib.ALL_LIBRARIES}) == len(names)
+    assert {k.library for k in cuda_lib.ALL_KERNELS} == set(cuda_lib.ALL_LIBRARIES)
+    assert len({k.name for k in cuda_lib.ALL_KERNELS}) == len(cuda_lib.ALL_KERNELS) == 5
+    assert cuda_lib.ALS.library is cuda_lib.ALS_BATCHED.library is cuda_lib.ALS_LIB
+    assert cuda_lib.GJ_SOLVE.library is cuda_lib.GJ_SOLVE_GRID.library is cuda_lib.GJ_LIB
+    assert [f.name for f in cuda_lib.ALS_LIB.source_files()] == ["als.cu"]
     assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
     assert cuda_lib.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
 
@@ -79,10 +88,15 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
 def test_unported_options_raise():
     cfg = dataclasses.replace(SHELF_BENCH, n_views=3)
     cams = synthetic_sequence(n_frames=1, n_people=1, n_views=3, cfg=cfg).cameras
-    for change in (dict(assoc_clusters=2), dict(appearance_dim=8), dict(ik_solver="chol")):
+    for change in (dict(motion_gain=0.5), dict(appearance_dim=8), dict(ik_solver="chol")):
         with pytest.raises(NotImplementedError):
             tracker.TrackerContext.build(cams, dataclasses.replace(cfg, **change),
                                          device="cpu")
+    with pytest.raises(NotImplementedError):
+        tracker.TrackerContext.build(cams, cfg, use_ik=False, device="cpu")
+    with pytest.raises(ValueError, match="exceeds n_views"):
+        tracker.TrackerContext.build(cams, dataclasses.replace(cfg, assoc_clusters=4),
+                                     device="cpu")
 
 
 def test_high_precision_pins_full_f32():
@@ -100,3 +114,16 @@ def test_shelf_bench_preset():
     assert (cfg.n_views, cfg.max_people, cfg.max_tracks) == (5, 6, 8)
     assert cfg.n_matrix == 38 and cfg.ik_solver == "gj"
     assert cfg.assoc_clusters == 1 and cfg.track_rescue_px > 0
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """An edit to a header a kernel source includes changes the library's
+    name, so a stale library is never loaded."""
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\nextern "C" int f() { return g(); }\n')
+    (tmp_path / "k.cuh").write_text("inline int g() { return 1; }\n")
+    monkeypatch.setattr(cuda_lib, "CSRC_DIR", tmp_path)
+    k = cuda_lib.CudaLibrary("k", "k.cu", {})
+    assert [f.name for f in k.source_files()] == ["k.cu", "k.cuh"]
+    before = k.library_path()
+    (tmp_path / "k.cuh").write_text("inline int g() { return 2; }\n")
+    assert k.library_path() != before
