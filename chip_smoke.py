@@ -267,12 +267,26 @@ def check_als(torch, name, W, mask, init, max_iter, stable_iters):
            "x_bin_mismatches": int((xk != xp).sum()),
            "max_abs_err": float(np.abs(xk.astype(np.float32) - xp.astype(np.float32)).max())}
     res["ms"] = cuda_time_ms(lambda: als_kernel.match_als(W, mask, init, **kw), reps=20)
+    res.update(als_launch_fields(n, rank, 1, res["ms"], ik))
     res["plain_ms"] = host_time_ms(lambda: association.match_als(W, mask, init, **kw))
     # W f32 and the mask bytes read, init_A read, x_bin bytes and iters written
     n_bytes = n * n * 4 + n * n + n * rank * 4 + n * n + 4
     res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, als_ops(n, rank, ik))
     res["ok"] = res["x_bin_mismatches"] == 0 and ik == ip
     return res
+
+
+def als_launch_fields(n: int, rank: int, C: int, ms: float, iters: int) -> dict:
+    """How the ALS kernel launched C problems of (n, rank): blocks per
+    cluster, SMs used, threads, shared memory, and the time per iteration
+    of the longest problem."""
+    from multiview_motion_capture_torch.ops import als_kernel
+
+    shape = als_kernel.launch_shape(n, rank)
+    return {"cluster": shape.cluster, "sms_used": C * shape.cluster,
+            "threads": shape.threads, "smem_bytes": shape.smem_bytes,
+            "max_active_clusters": shape.max_active_clusters,
+            "ms_per_iter": ms / max(iters, 1)}
 
 
 def als_seeded_case(torch, dev, name, seed, sizes, n_people, rank):
@@ -358,6 +372,7 @@ def check_als_batched(torch, name, W, mask, init, max_iter, stable_iters, timing
            "max_abs_err": float(np.abs(xk.astype(np.float32) - xp.astype(np.float32)).max())}
     res["ms"] = cuda_time_ms(lambda: als_kernel.match_als_batched(W, mask, init, **kw),
                              reps=timing_reps, rounds=3)
+    res.update(als_launch_fields(n, rank, C, res["ms"], max(ik)))
     res["plain_ms"] = host_time_ms(plain, rounds=1)
     # yardstick: the C problems as C sequential single-problem launches
     res["yardstick"] = "C sequential B1 launches"
@@ -456,8 +471,12 @@ def phase_kernels(torch, dev, seq, cfg):
     # the wide path's LM: 16 slots, 16 views x 32 residuals, 68 parameters
     fused = [check_fused(torch, dev, 16, 16 * 32, 68, 2)]
     gj_grid = [check_gj(torch, dev, 16, 68, 3, one_program=False)]
+    from multiview_motion_capture_torch.ops import cuda_lib
+
+    als_ptxas = [ln.strip() for ln in cuda_lib.ALS_LIB.build_log.splitlines()
+                 if "registers" in ln or "smem" in ln or "spill" in ln]
     emit({"phase": "kernels", "als": als, "gj_solve": gj, "als_batched": als_batched,
-          "fused_normal_gj": fused, "gj_solve_grid": gj_grid})
+          "fused_normal_gj": fused, "gj_solve_grid": gj_grid, "als_ptxas": als_ptxas})
     if not all(r["ok"] for r in als + gj + als_batched + fused + gj_grid):
         raise AssertionError("a kernel disagrees with its plain version")
     return dict(als=als[0], gj_solve=gj[0], als_batched=als_batched[0],

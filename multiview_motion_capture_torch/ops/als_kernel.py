@@ -6,20 +6,25 @@ and `match_als_pallas_batched` (the fused TPU kernels `_als_kernel` and
 mask:
 
 - `match_als(W (N, N), ...)`: a CUDA tensor launches `csrc/als.cu` with
-  one problem (one thread block runs the whole ADMM loop and its stop test
-  on the device), counted in `cuda_lib.ALS.launches`;
+  one problem (one thread-block cluster runs the whole ADMM loop and its
+  stop test on the device), counted in `cuda_lib.ALS.launches`;
 - `match_als_batched(W (C, N, N), ...)`: C problems of one layout (the
   camera clusters of a wide rig); a CUDA tensor launches `csrc/als.cu` once
-  for all C (one block per problem, each stopping at its own test), counted
-  in `cuda_lib.ALS_BATCHED.launches`;
+  for all C (one thread-block cluster per problem, each stopping at its own
+  test), counted in `cuda_lib.ALS_BATCHED.launches`;
 - a CPU tensor takes the plain torch version, `association.match_als`
   (once per problem for the batch).
 
-Each wrapper raises on anything its kernel does not take; there is no
-fallback between kernel and plain version.
+The launch shape depends on (N, rank) alone (`launch_shape`): one block
+per problem while its state fits one SM's shared memory, else a cluster of
+16 blocks.  Each wrapper raises on anything its kernel does not take,
+rank above `MAX_RANK` included; there is no fallback between kernel and
+plain version, and none between launch shapes.
 """
 from __future__ import annotations
 
+import ctypes
+from functools import lru_cache
 from typing import NamedTuple
 
 import torch
@@ -32,6 +37,31 @@ from multiview_motion_capture_torch.ops.cuda_lib import ALS, ALS_BATCHED, CudaKe
 # ceiling (als_pallas.MAX_PAD), which covers a 32-cam x 10-people rig at
 # N = 336.
 MAX_N = 384
+# Largest rank: the ridge solves give each lane of a warp one column of the
+# rank x rank block.  Every preset stays within it (2 x 16 track slots).
+MAX_RANK = 32
+
+
+class LaunchShape(NamedTuple):
+    cluster: int              # thread blocks per problem (1 or 16)
+    threads: int              # threads per block
+    smem_bytes: int           # dynamic shared memory per block
+    max_active_clusters: int  # clusters of this shape the card holds at once
+
+
+@lru_cache(maxsize=None)
+def launch_shape(n: int, rank: int) -> LaunchShape:
+    """How `csrc/als.cu` launches one (n, rank) problem on the current card.
+    Raises if the card cannot hold even one such cluster."""
+    out = (ctypes.c_int * 4)()
+    err = ALS.lib().als_launch_shape(n, rank, out)
+    if err != 0:
+        raise RuntimeError(f"als_launch_shape(n={n}, rank={rank}) failed: cudaError {err}")
+    shape = LaunchShape(*out)
+    if shape.max_active_clusters < 1:
+        raise RuntimeError(f"the card holds no cluster of {shape.cluster} blocks with "
+                           f"{shape.smem_bytes} B of shared memory each (n={n}, rank={rank})")
+    return shape
 
 
 def match_als(W: torch.Tensor, diag_mask: torch.Tensor, init_A: torch.Tensor,
@@ -99,18 +129,14 @@ def _launch(kernel: CudaKernel, W: torch.Tensor, diag_mask: torch.Tensor,
     x_bin (C, N, N) and iters (C,)."""
     n = W.shape[-1]
     C = W.shape[0] if W.dim() == 3 else 1
-    lib = kernel.lib()
+    launch_shape(n, rank)   # raises where the card holds no such cluster
     x_bin = torch.empty((C, n, n), dtype=torch.bool, device=W.device)
     iters = torch.empty((C,), dtype=torch.int32, device=W.device)
-    n_scratch = C * lib.als_scratch_floats(n, rank)
-    scratch = (torch.empty((n_scratch,), dtype=torch.float32, device=W.device)
-               if n_scratch > 0 else None)
     stream = torch.cuda.current_stream(W.device).cuda_stream
-    err = lib.als_solve_f32(
+    err = kernel.lib().als_solve_f32(
         W.data_ptr(), diag_mask.data_ptr(), init_A.data_ptr(), C, n, rank,
         float(alpha), float(beta), float(mu0), float(tol), int(max_iter),
-        int(stable_iters), x_bin.data_ptr(), iters.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None, stream)
+        int(stable_iters), x_bin.data_ptr(), iters.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"als_solve_f32 launch failed: cudaError {err}")
     kernel.launches += 1
@@ -129,6 +155,9 @@ def _check_inputs(W: torch.Tensor, n: int, diag_mask: torch.Tensor,
     rank = init_A.shape[1]
     if not 0 < rank <= n:
         raise ValueError(f"rank={rank} must be in [1, N={n}]")
+    if rank > MAX_RANK:
+        raise ValueError(f"rank={rank} exceeds the kernel's MAX_RANK={MAX_RANK} (its ridge "
+                         f"solves hold one column of the rank x rank block per warp lane)")
     for name, t in (("W", W), ("diag_mask", diag_mask), ("init_A", init_A)):
         if t.device != W.device:
             raise ValueError(f"{name} is on {t.device}, W on {W.device}")

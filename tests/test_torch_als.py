@@ -118,6 +118,29 @@ def test_residual_stop_and_iteration_count(stable_iters):
     np.testing.assert_allclose(port.x.numpy(), np.asarray(xla.x), atol=1e-4)
 
 
+@pytest.mark.parametrize("rank", [16, 32])
+@pytest.mark.parametrize("width", [1, 7, 21, 32])
+def test_column_strips_equal_the_whole_solve_and_product(rank, width):
+    """The invariant the cluster kernel's split rests on: the ridge solve of
+    [G + lam I | R] and the ordered product F M, cut into column strips of R
+    and M that share the left block, equal the whole, bit for bit."""
+    rng = np.random.RandomState(10 * rank + width)
+    n, m = 64, 75
+    F = torch.as_tensor(rng.rand(rank, n).astype(np.float32))
+    M = torch.as_tensor(rng.randn(n, m).astype(np.float32))
+    aug = TA._ordered_matmul(F, torch.cat([F.T, M], 1))
+    G = TA._ordered_matmul(F, F.T)
+    assert torch.equal(G, aug[:, :rank])
+    lam = float(np.float32(50.0) / np.float32(64.0))
+    whole = TA._ridge_gauss_jordan(aug, lam)
+    cuts = range(0, m, width)
+    strips = [TA._ridge_gauss_jordan(torch.cat([G, aug[:, rank + c:rank + c + width]], 1), lam)
+              for c in cuts]
+    assert torch.equal(torch.cat(strips, 1), whole)
+    prods = [TA._ordered_matmul(F, M[:, c:c + width]) for c in cuts]
+    assert torch.equal(torch.cat(prods, 1), aug[:, rank:])
+
+
 def test_block_diag_mask_and_init_factor_match_jax():
     sizes = (8, 6, 6, 6, 6, 6)
     np.testing.assert_array_equal(TA.block_diag_mask(sizes), JA.block_diag_mask(sizes))

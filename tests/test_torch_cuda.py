@@ -44,6 +44,86 @@ def test_als_kernel_equals_plain(cuda, sizes, rank):
     assert int(k.n_iters) == int(p.n_iters)
 
 
+def _als_inputs(cuda, sizes, rank, C, seed):
+    rng = np.random.RandomState(seed)
+    n = sum(sizes)
+    W = rng.rand(C, n, n).astype(np.float32) * 0.2
+    W = torch.as_tensor(0.5 * (W + W.transpose(0, 2, 1)), device=cuda).contiguous()
+    mask = torch.as_tensor(association.block_diag_mask(sizes), device=cuda)
+    init = torch.as_tensor(association.default_init_factor(n, rank), device=cuda)
+    return W, mask, init
+
+
+def _assert_batched_equals_plain_and_solo(W, mask, init, **kw):
+    k = als_kernel.match_als_batched(W, mask, init, **kw)
+    for c in range(W.shape[0]):
+        p = association.match_als(W[c], mask, init, **kw)
+        solo = als_kernel.match_als(W[c], mask, init, **kw)
+        assert torch.equal(k.x_bin[c], p.x_bin) and torch.equal(k.x_bin[c], solo.x_bin)
+        assert int(k.n_iters[c]) == int(p.n_iters) == int(solo.n_iters)
+    return k
+
+
+def _largest_one_block_n(rank):
+    return max(n for n in range(rank, als_kernel.MAX_N + 1)
+               if als_kernel.launch_shape(n, rank).cluster == 1)
+
+
+def test_als_launch_shape(cuda):
+    """One block per problem at SHELF_BENCH's shape, a cluster of 16 at the
+    wide rig's and at MAX_N; the card holds several such clusters at once."""
+    assert als_kernel.launch_shape(38, 16).cluster == 1
+    for n in (336, als_kernel.MAX_N):
+        shape = als_kernel.launch_shape(n, 32)
+        assert shape.cluster == 16 and shape.max_active_clusters >= 2
+    assert 64 < _largest_one_block_n(32) < 336
+
+
+@pytest.mark.parametrize("side", ["below", "above"])
+def test_als_kernel_at_the_cluster_switch(cuda, side):
+    """The last n solved by one block and the first solved by a cluster."""
+    n = _largest_one_block_n(32) + (side == "above")
+    assert als_kernel.launch_shape(n, 32).cluster == (16 if side == "above" else 1)
+    sizes = (16,) + (8,) * ((n - 16) // 8) + (((n - 16) % 8,) if (n - 16) % 8 else ())
+    W, mask, init = _als_inputs(cuda, sizes, 32, 1, seed=5)
+    k = als_kernel.match_als(W[0], mask, init, max_iter=40, stable_iters=10)
+    p = association.match_als(W[0], mask, init, max_iter=40, stable_iters=10)
+    assert torch.equal(k.x_bin, p.x_bin) and int(k.n_iters) == int(p.n_iters)
+
+
+def test_als_kernel_at_max_n(cuda):
+    sizes = (16,) + (8,) * 46
+    assert sum(sizes) == als_kernel.MAX_N
+    W, mask, init = _als_inputs(cuda, sizes, 32, 2, seed=6)
+    _assert_batched_equals_plain_and_solo(W, mask, init, max_iter=30, stable_iters=10)
+
+
+def test_als_batched_wide_rig_frame0_to_the_cap(cuda):
+    """The wide rig's own problems (PipelineConfig.wide(64): two clusters of
+    N = 336, rank 32) on its scene's first frame, whose ALS runs to the
+    100-iteration cap: every rounding counts there."""
+    from multiview_motion_capture_torch import tracker
+    from multiview_motion_capture_torch.config import PipelineConfig
+    from multiview_motion_capture_torch.data.ingest import filter_bad_poses
+    from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
+
+    cfg = PipelineConfig.wide(64, max_frames=None)
+    seq = synthetic_sequence(n_frames=1, n_people=10, n_views=64, seed=0, noise_px=1.0,
+                             drop_prob=0.05, cfg=cfg)
+    b = filter_bad_poses(seq.batch, cfg)
+    ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=cuda)
+    kps = torch.as_tensor(b.kps[0], device=cuda)
+    valid = torch.as_tensor(b.valid[0], device=cuda)
+    W = torch.stack([tracker._spatial_similarity(ctx, kps, valid, view_idx=cl.views,
+                                                 view_valid=cl.view_valid)[0]
+                     for cl in ctx.clusters]).contiguous()
+    assert tuple(W.shape) == (2, 336, 336) and ctx.cluster_init_A.shape[1] == 32
+    k = _assert_batched_equals_plain_and_solo(
+        W, ctx.cluster_diag_mask, ctx.cluster_init_A, max_iter=cfg.als_max_iter,
+        stable_iters=cfg.als_stable_iters)
+    assert k.n_iters.tolist() == [cfg.als_max_iter] * 2
+
+
 @pytest.mark.parametrize("T", [8, 16, 64])
 def test_gj_kernel_equals_plain(cuda, T):
     g = torch.Generator().manual_seed(T)
@@ -60,21 +140,12 @@ def test_gj_kernel_equals_plain(cuda, T):
 @pytest.mark.parametrize("sizes,rank,max_iter", [((8, 6, 6, 6, 6, 6), 16, 60),
                                                 ((16,) + (10,) * 32, 32, 20)])
 def test_als_batched_kernel_equals_plain_and_solo(cuda, sizes, rank, max_iter):
-    rng = np.random.RandomState(1)
-    n, C = sum(sizes), 3
-    W = rng.rand(C, n, n).astype(np.float32) * 0.2
-    W = torch.as_tensor(0.5 * (W + W.transpose(0, 2, 1)), device=cuda).contiguous()
-    mask = torch.as_tensor(association.block_diag_mask(sizes), device=cuda)
-    init = torch.as_tensor(association.default_init_factor(n, rank), device=cuda)
+    W, mask, init = _als_inputs(cuda, sizes, rank, 3, seed=1)
     kw = dict(max_iter=max_iter, stable_iters=10)
     before = (cuda_lib.ALS.launches, cuda_lib.ALS_BATCHED.launches)
-    k = als_kernel.match_als_batched(W, mask, init, **kw)
+    als_kernel.match_als_batched(W, mask, init, **kw)
     assert (cuda_lib.ALS.launches, cuda_lib.ALS_BATCHED.launches) == (before[0], before[1] + 1)
-    for c in range(C):
-        p = association.match_als(W[c], mask, init, **kw)
-        solo = als_kernel.match_als(W[c], mask, init, **kw)
-        assert torch.equal(k.x_bin[c], p.x_bin) and torch.equal(k.x_bin[c], solo.x_bin)
-        assert int(k.n_iters[c]) == int(p.n_iters) == int(solo.n_iters)
+    _assert_batched_equals_plain_and_solo(W, mask, init, **kw)
 
 
 def test_fused_normal_kernel_equals_plain(cuda):
@@ -116,6 +187,14 @@ def test_wrappers_reject_bad_inputs(cuda):
         als_kernel.match_als_batched(torch.zeros(2, 400, 400, device=cuda),
                                      torch.zeros(400, 400, dtype=torch.bool, device=cuda),
                                      torch.zeros(400, 8, device=cuda))
+    with pytest.raises(ValueError, match="MAX_RANK"):
+        als_kernel.match_als(torch.zeros(64, 64, device=cuda),
+                             torch.zeros(64, 64, dtype=torch.bool, device=cuda),
+                             torch.zeros(64, 33, device=cuda))
+    with pytest.raises(ValueError, match="MAX_RANK"):
+        als_kernel.match_als_batched(torch.zeros(2, 64, 64, device=cuda),
+                                     torch.zeros(64, 64, dtype=torch.bool, device=cuda),
+                                     torch.zeros(64, 33, device=cuda))
     with pytest.raises(ValueError):
         solve_kernel.fused_normal_solve(torch.zeros(2, 8, 100, device=cuda),
                                         torch.zeros(2, device=cuda), torch.zeros(99, device=cuda))
