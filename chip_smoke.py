@@ -18,6 +18,15 @@ each with the launch counters set to 0 just before it and read just after:
   of that scene, `wide_fused` (the same with ik_solver="gj_fused": kernel
   B4), `wide_parity` (card vs CPU decisions) and `wide_profile`.
 
+Kernel times (`ms`, `plain_ms`, `library_ms`, `yardstick_ms`) are CUDA
+events around back-to-back calls.  The LM solves (B2, B4, B5), whose calls
+take a few tens of microseconds, also print the device time of the same
+calls by torch.profiler (`device_ms`, `plain_device_ms`, ...): events
+around back-to-back wrapper calls that short measure the host's dispatch
+where it is the slower.  `spd_systems`, `lm_inputs`, `gj_route_systems`,
+`cuda_time_ms` and `device_ms` are shared with
+`scripts/torch_solve_timing.py` and `tests/test_torch_cuda.py`.
+
 It prints one JSON line per phase with its wall seconds.  The last lines
 are the card's `nvidia-smi` name and power limit, the kernel table and
 `{"ok": true, "device": {...}}`.  Any failure exits non-zero without the
@@ -63,8 +72,6 @@ REPROJ_GATE_PX = 0.25
 # (scripts/torch_parity_study.py, "ik_sensitivity"), a wrong solve or a
 # wrong observation moves a joint by decimetres
 POSE_TOL_M = 1e-2
-# kernel vs plain Gauss-Jordan: the kernel rounds as the plain version does
-GJ_REL_TOL = 1e-5
 PARITY_FRAMES = 60
 
 # the wide-rig scene of scripts/bench_scaled.py (64 cameras x 10 people)
@@ -128,6 +135,26 @@ def cuda_time_ms(fn, reps: int, rounds: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time per call of `fn`: the summed durations of the CUDA
+    kernels it launches, by torch.profiler, over `reps` calls after a warm
+    call.  Unlike CUDA events around back-to-back calls, it leaves out the
+    host's dispatch between the kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not kernels:
+        raise RuntimeError("the profiler saw no kernel on the card")
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
 
 
 def host_time_ms(fn, rounds: int = 3) -> float:
@@ -313,27 +340,81 @@ def als_frame0_case(torch, dev, seq, cfg):
                      max_iter=cfg.als_max_iter, stable_iters=cfg.als_stable_iters)
 
 
-def check_gj(torch, dev, T, D, seed, one_program=True):
-    from multiview_motion_capture_torch.ops import solve_kernel
-
+def spd_systems(torch, dev, T: int, D: int, seed: int):
+    """T seeded damped SPD systems of side D: A = M M^T / (2D) + 1e-3 I with
+    M (D, 2D) standard normal, and g, both f32 from torch's CPU generator."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     M = torch.randn(T, D, 2 * D, generator=g)
     A = (M @ M.transpose(1, 2) / (2 * D) + 1e-3 * torch.eye(D)).to(dev).contiguous()
     b = torch.randn(T, D, generator=g).to(dev)
+    return A, b
+
+
+def lm_inputs(torch, dev, T: int, R: int, D: int, seed: int, free=None):
+    """One LM iteration's seeded inputs of the fused solve, from numpy:
+    J (T, R, D) standard normal with the columns where `free` (D,) is 0
+    zeroed (default: a seeded draw that keeps 4 in 5), r (T, R), lam (T,) in
+    [1e-3, 1); frozen = 1 - free and Jaug = [J | r] (T, R, D + 1).  Returns
+    (J, r, lam, frozen, Jaug)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    if free is None:
+        free = (rng.rand(D) > 0.2).astype(np.float32)
+    free = torch.as_tensor(free, dtype=torch.float32, device=dev)
+    J = torch.as_tensor(rng.randn(T, R, D).astype(np.float32), device=dev) * free
+    r = torch.as_tensor(rng.randn(T, R).astype(np.float32), device=dev)
+    lam = torch.as_tensor(rng.uniform(1e-3, 1.0, T).astype(np.float32), device=dev)
+    frozen = (1.0 - free).contiguous()
+    Jaug = torch.cat([J, r[:, :, None]], dim=2).contiguous()
+    return J, r, lam, frozen, Jaug
+
+
+def gj_route_systems(torch, J, r, lam, frozen, eye):
+    """The "gj" LM route's systems for B2 from lm_inputs: J^T J + (lam +
+    ridge) I + diag(frozen) and J^T r, by two einsums (eye: the D x D
+    identity on the card)."""
+    D = J.shape[2]
+    JtJ = torch.einsum("trd,tre->tde", J, J)
+    g = torch.einsum("trd,tr->td", J, r)
+    ridge = 1e-6 * (torch.diagonal(JtJ, dim1=1, dim2=2).sum(-1) / D) + 1e-6
+    A = JtJ + (lam + ridge)[:, None, None] * eye + torch.diag(frozen)[None]
+    return A.contiguous(), g.contiguous()
+
+
+def check_gj(torch, dev, T, D, seed, one_program=True):
+    from multiview_motion_capture_torch.ops import solve_kernel
+
+    A, b = spd_systems(torch, dev, T, D, seed)
     xk = solve_kernel.batched_spd_solve(A, b, one_program=one_program)
     xp = solve_kernel.gauss_jordan_plain(A, b)
     torch.cuda.synchronize()
     err = float((xk - xp).abs().max())
-    rel = err / float(xp.abs().max())
     res = {"T": T, "D": D, "one_program": one_program, "max_abs_err": err,
-           "bit_equal": err == 0.0, "rel_err": rel, "rel_tol": GJ_REL_TOL}
-    res["ms"] = cuda_time_ms(
-        lambda: solve_kernel.batched_spd_solve(A, b, one_program=one_program), reps=50)
-    res["plain_ms"] = cuda_time_ms(lambda: solve_kernel.gauss_jordan_plain(A, b), reps=5)
-    res["library_ms"] = cuda_time_ms(lambda: torch.linalg.solve(A, b), reps=50)
+           "bit_equal": torch.equal(xk, xp), "rel_err": err / float(xp.abs().max())}
+    res.update(solve_kernel.gj_launch_shape(D)._asdict())
+
+    def kernel():
+        return solve_kernel.batched_spd_solve(A, b, one_program=one_program)
+
+    def plain():
+        return solve_kernel.gauss_jordan_plain(A, b)
+
+    def library():
+        return torch.linalg.solve(A, b)
+
+    # *ms: CUDA events around back-to-back calls; *device_ms: the same
+    # calls' kernel durations by the profiler
+    res["ms"] = cuda_time_ms(kernel, reps=50)
+    res["device_ms"] = device_ms(kernel, reps=50)
+    res["us_per_pivot_on_device"] = res["device_ms"] * 1e3 / D
+    res["plain_ms"] = cuda_time_ms(plain, reps=5)
+    res["plain_device_ms"] = device_ms(plain, reps=3)
+    res["library_ms"] = cuda_time_ms(library, reps=50)
+    res["library_device_ms"] = device_ms(library, reps=50)
     n_bytes = T * (D * D + D) * 4 + T * D * 4
     res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, gj_ops(T, D))
-    res["ok"] = rel <= GJ_REL_TOL
+    res["ok"] = res["bit_equal"]
     return res
 
 
@@ -411,44 +492,43 @@ def check_fused(torch, dev, T, R, D, seed):
     """The fused normal-equation kernel (B4) against its plain version on
     one LM iteration's shapes (pose-only stage: the side-length columns
     frozen), and the gj route on the same systems as its yardstick."""
-    import numpy as np
-
     from multiview_motion_capture_torch.ops import ik, solve_kernel
 
-    rng = np.random.RandomState(seed)
-    free = torch.as_tensor(ik._FREE_POSE, device=dev)
-    J = torch.as_tensor(rng.randn(T, R, D).astype(np.float32), device=dev) * free
-    r = torch.as_tensor(rng.randn(T, R).astype(np.float32), device=dev)
-    lam = torch.as_tensor(rng.uniform(1e-3, 1.0, T).astype(np.float32), device=dev)
-    frozen = (1.0 - free).contiguous()
-    Jaug = torch.cat([J, r[:, :, None]], dim=2).contiguous()
+    J, r, lam, frozen, Jaug = lm_inputs(torch, dev, T, R, D, seed, free=ik._FREE_POSE)
     xk = solve_kernel.fused_normal_solve(Jaug, lam, frozen)
     xp = solve_kernel.fused_normal_plain(Jaug, lam, frozen)
     torch.cuda.synchronize()
     err = float((xk - xp).abs().max())
-    rel = err / float(xp.abs().max())
     eye = torch.eye(D, device=dev)
 
     def gj_route():
-        JtJ = torch.einsum("trd,tre->tde", J, J)
-        g = torch.einsum("trd,tr->td", J, r)
-        ridge = 1e-6 * (torch.diagonal(JtJ, dim1=1, dim2=2).sum(-1) / D) + 1e-6
-        A = JtJ + (lam + ridge)[:, None, None] * eye + torch.diag(frozen)[None]
-        return solve_kernel.batched_spd_solve(A.contiguous(), g.contiguous())
+        return solve_kernel.batched_spd_solve(*gj_route_systems(torch, J, r, lam, frozen, eye))
 
     xg = gj_route()
-    res = {"T": T, "R": R, "D": D, "max_abs_err": err, "bit_equal": err == 0.0,
-           "rel_err": rel, "rel_tol": GJ_REL_TOL,
+    res = {"T": T, "R": R, "D": D, "max_abs_err": err, "bit_equal": torch.equal(xk, xp),
+           "rel_err": err / float(xp.abs().max()),
            "gj_route_rel_diff": float((xg - xk).abs().max() / xk.abs().max())}
-    res["ms"] = cuda_time_ms(lambda: solve_kernel.fused_normal_solve(Jaug, lam, frozen),
-                             reps=50)
-    res["plain_ms"] = cuda_time_ms(lambda: solve_kernel.fused_normal_plain(Jaug, lam, frozen),
-                                   reps=2, rounds=3)
+    shape = solve_kernel.fused_launch_shape(D)
+    res.update(shape._asdict(), sms_used=T * shape.cluster)
+
+    def kernel():
+        return solve_kernel.fused_normal_solve(Jaug, lam, frozen)
+
+    def plain():
+        return solve_kernel.fused_normal_plain(Jaug, lam, frozen)
+
+    # *ms: CUDA events around back-to-back calls; *device_ms: the same
+    # calls' kernel durations by the profiler
+    res["ms"] = cuda_time_ms(kernel, reps=50)
+    res["device_ms"] = device_ms(kernel, reps=50)
+    res["plain_ms"] = cuda_time_ms(plain, reps=2, rounds=3)
+    res["plain_device_ms"] = device_ms(plain, reps=2)
     res["yardstick"] = "gj route: two torch.einsum + the B2 kernel"
     res["yardstick_ms"] = cuda_time_ms(gj_route, reps=50)
+    res["yardstick_device_ms"] = device_ms(gj_route, reps=50)
     n_bytes = T * R * (D + 1) * 4 + T * 4 + D * 4 + T * D * 4
     res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, fused_ops(T, R, D))
-    res["ok"] = rel <= GJ_REL_TOL
+    res["ok"] = res["bit_equal"]
     return res
 
 
@@ -761,6 +841,10 @@ def main() -> int:
                "bound_by": r["bound_by"], "library_ms": library_ms}
         if "yardstick_ms" in r:
             out["yardstick"], out["yardstick_ms"] = r["yardstick"], r["yardstick_ms"]
+        # the device times of the LM solves, and the launch shape
+        out.update({k: r[k] for k in ("device_ms", "plain_device_ms", "library_device_ms",
+                                      "yardstick_device_ms", "cluster", "threads",
+                                      "smem_bytes", "registers", "local_bytes") if k in r})
         return out
 
     tpu = "multiview_motion_capture_tpu/ops/"

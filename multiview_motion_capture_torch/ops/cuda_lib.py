@@ -13,7 +13,8 @@ of the kernel table (one TPU kernel's counterpart): the library it launches
 and a plain integer `launches` count that its wrapper raises by one per
 kernel launch and nowhere else.  Two entries may launch one library: B1 and
 B3 (one ALS problem or C of them), B2 and B5 (the TPU package's two launch
-shapes of one Gauss-Jordan solve).
+shapes of one Gauss-Jordan solve).  `gj_solve.cu` and `fused_normal_gj.cu`
+share their elimination through the header `gj_elim.cuh`.
 """
 from __future__ import annotations
 
@@ -142,13 +143,18 @@ ALS_LIB = CudaLibrary("als", "als.cu", {
                            _p, _p, _p]),
 })
 GJ_LIB = CudaLibrary("gj_solve", "gj_solve.cu", {
+    "gj_max_d": (_i, []),
     # A, g, x, T, D, stream
     "gj_solve_f32": (_i, [_p, _p, _p, _i, _i, _p]),
+    # D, int[5] out
+    "gj_launch_shape": (_i, [_i, _p]),
 })
 FUSED_NORMAL_GJ_LIB = CudaLibrary("fused_normal_gj", "fused_normal_gj.cu", {
     "fused_normal_max_d": (_i, []),
     # Jaug, lam, frozen_diag, x, T, R, D, stream
     "fused_normal_gj_f32": (_i, [_p, _p, _p, _p, _i, _i, _i, _p]),
+    # D, int[6] out
+    "fused_launch_shape": (_i, [_i, _p]),
 })
 ALL_LIBRARIES = (ALS_LIB, GJ_LIB, FUSED_NORMAL_GJ_LIB)
 

@@ -5,23 +5,31 @@ Port of `multiview_motion_capture_tpu/ops/solve_pallas.py` (TPU kernels
 `_gj_kernel_3d`, `_gj_kernel` and `_fused_normal_gj_kernel`):
 
 - `batched_spd_solve(A, g)` solves A[t] x[t] = g[t] for T SPD systems.  A
-  CUDA tensor launches `csrc/gj_solve.cu` (one thread block per system, the
-  augmented block in shared memory); a CPU tensor takes
-  `gauss_jordan_plain`, the same no-pivot Gauss-Jordan in torch ops, step
-  for step as the TPU kernel.  `one_program` selects between the TPU
-  kernel's two launch shapes; on Hopper both are the same launch (one block
-  per system), counted apart: `cuda_lib.GJ_SOLVE.launches` for
-  `one_program=True`, `cuda_lib.GJ_SOLVE_GRID.launches` for False.
+  CUDA tensor launches `csrc/gj_solve.cu` (one block of 256 threads per
+  system, the augmented block in registers, one barrier per pivot); a CPU
+  tensor takes `gauss_jordan_plain`, the same no-pivot Gauss-Jordan in
+  torch ops, step for step as the TPU kernel.  `one_program` selects
+  between the TPU kernel's two launch shapes; on Hopper both are the same
+  launch (one block per system), counted apart:
+  `cuda_lib.GJ_SOLVE.launches` for `one_program=True`,
+  `cuda_lib.GJ_SOLVE_GRID.launches` for False.
 - `fused_normal_solve(Jaug, lam, frozen_diag)` forms each slot's damped
   normal equations from [J | r] and solves them.  A CUDA tensor launches
-  `csrc/fused_normal_gj.cu` (one block per slot; J^T J never leaves the
-  SM), counted in `cuda_lib.FUSED_NORMAL_GJ.launches`; a CPU tensor takes
+  `csrc/fused_normal_gj.cu` (one cluster of 4 blocks per slot: the
+  symmetric J^T [J | r] in register tiles, gathered in the leader block's
+  shared memory, then gj_solve.cu's elimination), counted in
+  `cuda_lib.FUSED_NORMAL_GJ.launches`; a CPU tensor takes
   `fused_normal_plain`.
 
 Every wrapper raises on anything its kernel does not take; there is no
-fallback from a CUDA tensor to a plain version.
+fallback from a CUDA tensor to a plain version.  `gj_launch_shape` and
+`fused_launch_shape` say how a side D launches on the current card.
 """
 from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
@@ -31,11 +39,54 @@ from multiview_motion_capture_torch.ops.cuda_lib import (
     GJ_SOLVE_GRID,
 )
 
-# shared memory of one block: D x (D + 1) augmented block plus two buffers
-MAX_D = 230
-# the fused kernel: each of its 1024 threads owns at most 8 entries of the
-# D x (D + 1) block (`fused_normal_max_d` in the source)
+# the augmented block lives in the registers of one 256-thread block: a
+# thread holds a 12 x 12 tile at most (`gj_max_d` in the source)
+MAX_D = 191
+# the fused kernel: its Gram tiles fill at most 256 threads of each of the
+# cluster's 4 blocks (`fused_normal_max_d` in the source)
 FUSED_MAX_D = 90
+
+
+class GjLaunchShape(NamedTuple):
+    threads: int              # threads per block
+    blocks_per_system: int
+    smem_bytes: int           # shared memory per block
+    registers: int            # per thread, as ptxas assigned them
+    local_bytes: int          # per thread: spills (0 when none)
+
+
+class FusedLaunchShape(NamedTuple):
+    cluster: int              # thread blocks per slot
+    threads: int              # threads per block
+    smem_bytes: int           # dynamic shared memory per block
+    registers: int            # per thread, as ptxas assigned them
+    local_bytes: int          # per thread: spills (0 when none)
+    max_active_clusters: int  # clusters of this shape the card holds at once
+
+
+@lru_cache(maxsize=None)
+def gj_launch_shape(D: int) -> GjLaunchShape:
+    """How `csrc/gj_solve.cu` launches side D."""
+    out = (ctypes.c_int * 5)()
+    err = GJ_SOLVE.lib().gj_launch_shape(D, out)
+    if err != 0:
+        raise RuntimeError(f"gj_launch_shape(D={D}) failed: cudaError {err}")
+    return GjLaunchShape(*out)
+
+
+@lru_cache(maxsize=None)
+def fused_launch_shape(D: int) -> FusedLaunchShape:
+    """How `csrc/fused_normal_gj.cu` launches side D.  Raises if the card
+    cannot hold even one such cluster."""
+    out = (ctypes.c_int * 6)()
+    err = FUSED_NORMAL_GJ.lib().fused_launch_shape(D, out)
+    if err != 0:
+        raise RuntimeError(f"fused_launch_shape(D={D}) failed: cudaError {err}")
+    shape = FusedLaunchShape(*out)
+    if shape.max_active_clusters < 1:
+        raise RuntimeError(f"the card holds no cluster of {shape.cluster} blocks of the "
+                           f"fused kernel at D={D}")
+    return shape
 
 
 def gauss_jordan_plain(A: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -130,8 +181,8 @@ def batched_spd_solve(A: torch.Tensor, g: torch.Tensor,
     T, D = g.shape
     if A.shape != (T, D, D):
         raise ValueError(f"A {tuple(A.shape)} does not match g {tuple(g.shape)}")
-    if D > MAX_D:
-        raise ValueError(f"D={D} exceeds the kernel's MAX_D={MAX_D}")
+    if not 0 < D <= MAX_D:
+        raise ValueError(f"D={D}: the kernel takes 1 <= D <= MAX_D={MAX_D}")
     for name, t in (("A", A), ("g", g)):
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")

@@ -124,12 +124,15 @@ def test_als_batched_wide_rig_frame0_to_the_cap(cuda):
     assert k.n_iters.tolist() == [cfg.als_max_iter] * 2
 
 
+def _spd_systems(cuda, T, D, seed):
+    import chip_smoke  # beside tests/; on sys.path under `python -m pytest`
+
+    return chip_smoke.spd_systems(torch, cuda, T, D, seed)
+
+
 @pytest.mark.parametrize("T", [8, 16, 64])
 def test_gj_kernel_equals_plain(cuda, T):
-    g = torch.Generator().manual_seed(T)
-    M = torch.randn(T, 68, 136, generator=g)
-    A = (M @ M.transpose(1, 2) / 136 + 1e-3 * torch.eye(68)).to(cuda).contiguous()
-    b = torch.randn(T, 68, generator=g).to(cuda)
+    A, b = _spd_systems(cuda, T, 68, T)
     before = (cuda_lib.GJ_SOLVE.launches, cuda_lib.GJ_SOLVE_GRID.launches)
     x = solve_kernel.batched_spd_solve(A, b)
     assert (cuda_lib.GJ_SOLVE.launches, cuda_lib.GJ_SOLVE_GRID.launches) == \
@@ -148,31 +151,84 @@ def test_als_batched_kernel_equals_plain_and_solo(cuda, sizes, rank, max_iter):
     _assert_batched_equals_plain_and_solo(W, mask, init, **kw)
 
 
+@pytest.mark.parametrize("D", [1, 15, 16, 33, 68, 69, solve_kernel.MAX_D])
+def test_gj_kernel_equals_plain_at_tile_edges(cuda, D):
+    """Each thread of the 16 x 16 grid holds a P x P tile, P = ceil((D + 1)
+    / 16): D = 1; 15 and 16 on both sides of the step from P = 1 to 2; 33,
+    68 and 69 (P = 3, 5, 5); the register limit MAX_D (P = 12)."""
+    A, b = _spd_systems(cuda, 3, D, D)
+    assert torch.equal(solve_kernel.batched_spd_solve(A, b), solve_kernel.gauss_jordan_plain(A, b))
+
+
+def _lm_inputs(cuda, T, R, D, seed):
+    """Jaug, lam and frozen of chip_smoke.lm_inputs, a seeded fifth of the
+    columns frozen."""
+    import chip_smoke
+
+    _, _, lam, frozen, Jaug = chip_smoke.lm_inputs(torch, cuda, T, R, D, seed)
+    return Jaug, lam, frozen
+
+
 def test_fused_normal_kernel_equals_plain(cuda):
-    rng = np.random.RandomState(2)
-    T, R, D = 16, 512, 68
-    free = torch.as_tensor((rng.rand(D) > 0.2).astype(np.float32), device=cuda)
-    J = torch.as_tensor(rng.randn(T, R, D).astype(np.float32), device=cuda) * free
-    r = torch.as_tensor(rng.randn(T, R).astype(np.float32), device=cuda)
-    Jaug = torch.cat([J, r[:, :, None]], dim=2).contiguous()
-    lam = torch.as_tensor(rng.uniform(1e-3, 1.0, T).astype(np.float32), device=cuda)
-    frozen = (1.0 - free).contiguous()
+    Jaug, lam, frozen = _lm_inputs(cuda, 16, 512, 68, 2)
     before = cuda_lib.FUSED_NORMAL_GJ.launches
     x = solve_kernel.fused_normal_solve(Jaug, lam, frozen)
     assert cuda_lib.FUSED_NORMAL_GJ.launches == before + 1
     assert torch.equal(x, solve_kernel.fused_normal_plain(Jaug, lam, frozen))
 
 
-def test_gj_one_program_false_launch_equals_plain(cuda):
-    g = torch.Generator().manual_seed(16)
-    M = torch.randn(16, 68, 136, generator=g)
-    A = (M @ M.transpose(1, 2) / 136 + 1e-3 * torch.eye(68)).to(cuda).contiguous()
-    b = torch.randn(16, 68, generator=g).to(cuda)
+@pytest.mark.parametrize("R", [1, 37, 512])
+def test_fused_normal_kernel_chunk_tails(cuda, R):
+    """One row (only the first product of each entry), a chunk and a tail
+    of 5 rows, and 16 full chunks of 32."""
+    Jaug, lam, frozen = _lm_inputs(cuda, 4, R, 68, R)
+    assert torch.equal(solve_kernel.fused_normal_solve(Jaug, lam, frozen),
+                       solve_kernel.fused_normal_plain(Jaug, lam, frozen))
+
+
+@pytest.mark.parametrize("D", [68, solve_kernel.FUSED_MAX_D])
+def test_fused_normal_kernel_equals_plain_up_to_its_limit(cuda, D):
+    Jaug, lam, frozen = _lm_inputs(cuda, 3, 96, D, D)
+    assert bool((frozen == 1).any()) and bool((frozen == 0).any())
+    assert torch.equal(solve_kernel.fused_normal_solve(Jaug, lam, frozen),
+                       solve_kernel.fused_normal_plain(Jaug, lam, frozen))
+
+
+@pytest.mark.parametrize("T", [1, 16])
+def test_gj_one_program_false_launch_equals_plain(cuda, T):
+    A, b = _spd_systems(cuda, T, 68, 16)
     before = (cuda_lib.GJ_SOLVE.launches, cuda_lib.GJ_SOLVE_GRID.launches)
     x = solve_kernel.batched_spd_solve(A, b, one_program=False)
     assert (cuda_lib.GJ_SOLVE.launches, cuda_lib.GJ_SOLVE_GRID.launches) == \
            (before[0], before[1] + 1)
     assert torch.equal(x, solve_kernel.gauss_jordan_plain(A, b))
+
+
+def test_solve_limits_and_launch_shapes(cuda):
+    """The wrappers' limits are the kernels'; the LM's D = 68 runs one
+    16 x 16 block per system (B2) and a cluster of 4 blocks per slot (B4),
+    16 of which the card holds at once, neither with local memory."""
+    assert cuda_lib.GJ_LIB.lib().gj_max_d() == solve_kernel.MAX_D
+    assert cuda_lib.FUSED_NORMAL_GJ_LIB.lib().fused_normal_max_d() == solve_kernel.FUSED_MAX_D
+    gj = solve_kernel.gj_launch_shape(68)
+    assert (gj.threads, gj.blocks_per_system, gj.local_bytes) == (256, 1, 0)
+    fused = solve_kernel.fused_launch_shape(68)
+    assert (fused.cluster, fused.threads, fused.local_bytes) == (4, 256, 0)
+    assert fused.max_active_clusters >= 16
+    for D in (solve_kernel.MAX_D, solve_kernel.FUSED_MAX_D):
+        assert solve_kernel.gj_launch_shape(D).threads == 256
+    assert solve_kernel.fused_launch_shape(solve_kernel.FUSED_MAX_D).cluster == 4
+
+
+def test_solve_wrappers_raise_above_their_limits(cuda):
+    D = solve_kernel.MAX_D + 1
+    with pytest.raises(ValueError, match="MAX_D"):
+        solve_kernel.batched_spd_solve(torch.zeros(1, D, D, device=cuda),
+                                       torch.zeros(1, D, device=cuda))
+    D = solve_kernel.FUSED_MAX_D + 1
+    with pytest.raises(ValueError):
+        solve_kernel.fused_normal_solve(torch.zeros(1, 8, D + 1, device=cuda),
+                                        torch.zeros(1, device=cuda), torch.zeros(D, device=cuda))
 
 
 def test_wrappers_reject_bad_inputs(cuda):

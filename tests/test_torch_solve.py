@@ -76,3 +76,52 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         solve_kernel.batched_spd_solve(torch.zeros((2, 3, 3), device="meta"),
                                        torch.zeros((2, 3), device="meta"))
+
+
+def _quotient_pairs(case, rng, n=1 << 20):
+    """float32 pairs (a, b) of one kind, as numpy arrays."""
+    f32 = np.float32
+    if case == "random_bits":                  # every float, subnormals and specials included
+        bits = rng.integers(0, 1 << 32, (2, n), dtype=np.uint64).astype(np.uint32)
+        return bits[0].view(f32), bits[1].view(f32)
+    if case == "lm_magnitudes":                # the LM's entries: 1e-6 .. 1e6 either sign
+        a, b = (rng.standard_normal((2, n)) * 10.0 ** rng.integers(-6, 6, (2, n))).astype(f32)
+        return a, b
+    if case == "subnormal_quotients":          # quotients from 2^-160 to 2^-110
+        a = np.ldexp(rng.uniform(1, 2, n), rng.integers(-149, -100, n)).astype(f32)
+        b = np.ldexp(rng.uniform(1, 2, n), rng.integers(-10, 40, n)).astype(f32)
+        return a * rng.choice([f32(-1), f32(1)], n), b
+    if case == "overflowing_quotients":        # quotients from 2^100 to 2^160, around FLT_MAX
+        a = np.ldexp(rng.uniform(1, 2, n), rng.integers(90, 128, n)).astype(f32)
+        b = np.ldexp(rng.uniform(1, 2, n), rng.integers(-32, 10, n)).astype(f32)
+        return a, b * rng.choice([f32(-1), f32(1)], n)
+    if case == "near_midpoints":               # a = RN(m b), m halfway between two floats
+        q = rng.uniform(1, 2, n).astype(f32)
+        m = q.astype(np.float64) + np.ldexp(1.0, -24)            # 25 significant bits
+        b = np.ldexp(rng.uniform(1, 2, n), rng.integers(-60, 60, n)).astype(f32)
+        return (m * b.astype(np.float64)).astype(f32), b
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -3.0, 1e-45, -1e-45,
+                         1.1754944e-38, 3.4028235e38, -3.4028235e38, 0.1, 7.0], f32)
+    return np.repeat(specials, len(specials)), np.tile(specials, len(specials))
+
+
+@pytest.mark.parametrize("case", ["random_bits", "lm_magnitudes", "subnormal_quotients",
+                                  "overflowing_quotients", "near_midpoints", "specials"])
+def test_reciprocal_product_quotient_is_the_float_division(case):
+    """csrc/gj_elim.cuh forms each quotient a / b of the elimination as
+    a * RN64(1 / b) in double, rounded once to float (`gj::quotient`), and
+    rests its bit-equality with the plain version's float division on that
+    being the correctly rounded a / b for every pair of floats.  Here numpy's
+    IEEE double and float operations stand for the card's __drcp_rn,
+    __dmul_rn, __double2float_rn and __fdiv_rn."""
+    a, b = _quotient_pairs(case, np.random.default_rng(7))
+    with np.errstate(all="ignore"):
+        q = a / b
+        via_rcp = (a.astype(np.float64) * (1.0 / b.astype(np.float64))).astype(np.float32)
+    same = (q.view(np.uint32) == via_rcp.view(np.uint32)) | (np.isnan(q) & np.isnan(via_rcp))
+    bad = np.nonzero(~same)[0][:3]
+    assert same.all(), [(a[i], b[i], q[i], via_rcp[i]) for i in bad]
+    if case == "subnormal_quotients":
+        assert ((np.abs(q) < np.finfo(np.float32).tiny) & (q != 0)).mean() > 0.3
+    if case == "overflowing_quotients":
+        assert np.isinf(q).mean() > 0.3 and np.isfinite(q).mean() > 0.3

@@ -5,9 +5,9 @@ the batched LM with `solver="gj_fused"`, and the LM with per-slot
 projections (the tracker's top-k view subset, cfg.ik_max_views).
 
 Tolerances: the fused solve forms J^T J in another order of rounding than
-the JAX kernel's dot and eliminates in f32: relative 1e-5 (as the card's
-Gauss-Jordan check).  Whole LM solves go through accept/reject steps on
-those solves: 1e-4 m on a well-observed scene, as the JAX package's own
+the JAX kernel's dot and eliminates in f32: relative 1e-5.  Whole LM
+solves go through accept/reject steps on those solves: 1e-4 m on a
+well-observed scene, as the JAX package's own
 `test_gj_fused_solver_matches_gj` holds its two solvers.
 """
 import jax.numpy as jnp
@@ -90,6 +90,72 @@ def test_fused_normal_plain_equals_its_gj_route():
     g = np.einsum("trd,tr->td", Jm.astype(np.float64), r)
     ref = np.linalg.solve(A, g[..., None])[..., 0]
     assert np.abs(x - ref).max() / np.abs(ref).max() < 1e-4
+
+
+def _kernel_gram_tiles(D, blocks):
+    """csrc/fused_normal_gj.cu's Gram tiles, rows 2u, 2u+1 and columns 4v ..
+    4v+3 of G, those that reach its upper triangle or its last column (v >=
+    u // 2), a contiguous range of them to each block of the cluster."""
+    tiles = [(u, v) for u in range((D + 1) // 2) for v in range(u // 2, (D + 4) // 4)]
+    per = -(-len(tiles) // blocks)
+    return [tiles[b * per:(b + 1) * per] for b in range(blocks)]
+
+
+def _ordered_entries(Jaug, rows, cols):
+    """Entries (rows[e], cols[e]) of Jaug^T Jaug, each summed over the rows
+    of Jaug in index order from the first row's product: one rounding per
+    product and per sum."""
+    s = Jaug[:, 0, rows] * Jaug[:, 0, cols]
+    for r in range(1, Jaug.shape[1]):
+        s = s + Jaug[:, r, rows] * Jaug[:, r, cols]
+    return s
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 4, 8])
+@pytest.mark.parametrize("free", ["pose", "mixed"])
+def test_symmetric_gram_tiles_equal_the_plain_product(free, blocks):
+    """What the B4 kernel's Gram rests on: the tiles that reach the upper
+    triangle of J^T [J | r], each entry summed in row order and mirrored,
+    give the plain version's G bit for bit (a * b == b * a), whichever
+    blocks of the cluster the tiles are dealt to; and the solve of that G is
+    `fused_normal_plain`'s."""
+    J, r, lam = _jaug(5)
+    T, R, D = J.shape
+    mask = (np.asarray(TK._FREE_POSE) if free == "pose"
+            else (np.random.RandomState(7).rand(D) > 0.3).astype(np.float32))
+    Jaug = t(np.concatenate([J * mask, r[:, :, None]], axis=2))
+    frozen = t((1.0 - mask).astype(np.float32))
+    # the plain version's G, as fused_normal_plain forms it
+    Jd = Jaug[:, :, :D]
+    G_plain = Jd[:, 0, :, None] * Jaug[:, 0, None, :]
+    for row in range(1, R):
+        G_plain = G_plain + Jd[:, row, :, None] * Jaug[:, row, None, :]
+
+    G = torch.full((T, D, D + 1), float("nan"))
+    computed = 0
+    for block in _kernel_gram_tiles(D, blocks):
+        ij = [(2 * u + p, 4 * v + q) for u, v in block for p in range(2) for q in range(4)]
+        ij = [(i, j) for i, j in ij if i < D and j <= D]
+        computed += len(ij)
+        rows, cols = (torch.tensor(a) for a in zip(*ij))
+        s = _ordered_entries(Jaug, rows, cols)
+        G[:, rows, cols] = s
+        lower = cols < D
+        G[:, cols[lower], rows[lower]] = s[:, lower]
+    assert computed < 0.6 * D * (D + 1)          # 2,516 of 4,692 entries at D = 68
+    assert torch.equal(G, G_plain)
+
+    # the shift and the solve of that G are the plain version's
+    tr = torch.diagonal(G[:, :, :D], dim1=1, dim2=2)
+    trace = tr[:, 0]
+    for i in range(1, D):
+        trace = trace + tr[:, i]
+    ridge = 1e-6 * (trace / torch.tensor(float(D))) + 1e-6
+    A = G[:, :, :D].clone()
+    idx = torch.arange(D)
+    A[:, idx, idx] = (A[:, idx, idx] + (t(lam) + ridge)[:, None]) + frozen[None]
+    assert torch.equal(solve_kernel.gauss_jordan_plain(A, G[:, :, D].contiguous()),
+                       solve_kernel.fused_normal_plain(Jaug, t(lam), frozen))
 
 
 def test_fused_wrapper_rejects_other_devices_and_shapes():
