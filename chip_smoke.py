@@ -12,6 +12,21 @@ each with the launch counters set to 0 just before it and read just after:
   5-camera synthetic scene (kernels B1 ALS, B2 Gauss-Jordan), its quality
   against the JAX package's numbers for that scene, a card-vs-CPU decision
   check (`parity`) and a profiler window (`profile`);
+- `default`: `pipeline.run` on `PipelineConfig(n_views=5)`, the JAX
+  package's default preset (the per-slot Cholesky LM with staged solves,
+  ALS capped at 1,000 iterations; kernel B1), on the slice's scene, its
+  quality against the JAX package's, `default_parity` (card vs CPU) and
+  `default_profile`;
+- `no_ik`: the same in triangulation mode (`use_ik=False`), its
+  reprojection on the 17 COCO joints against the JAX skill's 3 px bound;
+- `stream`: the streaming `MvTracker` (with the motion gate,
+  `motion_gain=1.0`) over 60 frames of that scene, one `update` per frame
+  and `update_batch` in chunks of 8 (the tail padded), each bit-equal to
+  `run_offline`; the latency of one `update`;
+- `appearance`: `pipeline.run` with appearance evidence on the identity
+  study's 10-camera, 10-person, 200-frame scene (extractor-grade synthetic
+  embeddings, the auto gain; kernels B1 as a cluster of 16, B2), its
+  quality against the JAX package's, and `appearance_parity`;
 - `wide`: `pipeline.run` on `PipelineConfig.wide(64)` over a 60-frame,
   10-person, 64-camera scene (two camera clusters: kernel B3 batched ALS,
   B2), its quality and per-frame decisions against the JAX package's run
@@ -34,8 +49,10 @@ final line.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -51,9 +68,12 @@ REPO = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
-# JAX package on the CPU, same scene and config (synthetic_sequence(300,
-# 4 people, 5 views, seed 0) through pipeline.run with SHELF_BENCH,
-# max_frames=None, use_ik=True)
+# the slice's scene, and the default preset's (its 10 detection slots per
+# view pad the same people)
+SCENE = dict(n_frames=300, n_people=4, n_views=5, seed=0)
+DEFAULT_CFG = dict(n_views=5, max_frames=None)
+# JAX package on the CPU, SCENE through pipeline.run with SHELF_BENCH,
+# max_frames=None, use_ik=True
 REFERENCE = dict(n_tracklets=13, top_lengths=[300, 299, 241, 171, 112, 22],
                  mean_reproj_px=1.899, median_reproj_px=1.558,
                  n_degenerate_poses=0)
@@ -103,8 +123,42 @@ WIDE_REFERENCE = dict(
         "a99bea6d1e", "1c5310edfd", "44a899fd76", "22b8a005fb", "8b2bb9a886", "f631db586d",
         "68d9b6ce82", "f60b6f6f48", "ea92403c20", "b722c2a047", "4569ae0023", "9ede1e1cf5"],
 )
-WIDE_PARITY_FRAMES = 20
+WIDE_PARITY_FRAMES = 10
 WIDE_PROFILE_FRAMES = 10
+
+# the default preset on the slice's scene: JAX package on the CPU, the
+# tracklets of its pipeline.run, in IK and in triangulation mode (the
+# latter on the 17 COCO joints) (scripts/torch_parity_study.py --study
+# default)
+DEFAULT_REFERENCE = dict(n_tracklets=13, top_lengths=[300, 299, 242, 174, 112, 22],
+                         mean_reproj_px=1.7905554183871784,
+                         median_reproj_px=1.5558753475866767, n_degenerate_poses=0)
+DEFAULT_NO_IK_REFERENCE = dict(n_tracklets=13, top_lengths=[300, 299, 241, 174, 112, 22],
+                               mean_reproj_px=1.2912123099596216,
+                               median_reproj_px=1.03596178080396, n_degenerate_poses=0)
+# the JAX package's own bound for triangulation mode (its verify skill)
+NO_IK_REPROJ_BOUND_PX = 3.0
+DEFAULT_PARITY_FRAMES = 20
+DEFAULT_PROFILE_FRAMES = 10
+STREAM_FRAMES = 60
+STREAM_CHUNK = 8
+
+# scripts/identity_study.py's 10cam_x_10ppl_f200_appearance_extractorgrade_
+# auto8 (lines 25-70, 148-150): 10 views x 10 people, 200 frames, rescue
+# off, extractor-grade embeddings with the online auto gain
+APPEARANCE_CFG = dict(n_views=10, max_people=10, max_tracks=16, max_frames=None,
+                      als_max_iter=100, ik_warm_stages=1, ik_solver="gj", track_rescue_px=0.0,
+                      appearance_dim=16, appearance_auto_target_px=8.0)
+APPEARANCE_SCENE = dict(n_frames=200, n_people=10, n_views=10, seed=0, noise_px=1.0,
+                        drop_prob=0.05)
+APPEARANCE_EMBED = dict(dim=16, noise=0.05, shared_frac=0.83)
+# JAX package on the CPU, same scene and config
+# (scripts/torch_parity_study.py --study appearance)
+APPEARANCE_REFERENCE = dict(
+    n_tracklets=29, top_lengths=[200, 199, 199, 199, 194, 193, 167, 113, 77, 73],
+    mean_reproj_px=2.0581043661681804, median_reproj_px=1.6518283784836114,
+    n_degenerate_poses=0)
+APPEARANCE_PARITY_FRAMES = 20
 
 
 def emit(obj) -> None:
@@ -137,31 +191,37 @@ def cuda_time_ms(fn, reps: int, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, attempts: int = 3) -> float:
     """Mean device time per call of `fn`: the summed durations of the CUDA
     kernels it launches, by torch.profiler, over `reps` calls after a warm
     call.  Unlike CUDA events around back-to-back calls, it leaves out the
-    host's dispatch between the kernels."""
+    host's dispatch between the kernels.  A window in which the profiler
+    reports no kernel is traced again, up to `attempts` windows in all (a
+    machine's first window has come back empty)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    if not kernels:
-        raise RuntimeError("the profiler saw no kernel on the card")
-    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if kernels:
+            return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+    raise RuntimeError(f"the profiler saw no kernel on the card in {attempts} windows")
 
 
-def host_time_ms(fn, rounds: int = 3) -> float:
-    """Median wall time of `fn` (which synchronizes on the host itself)."""
+def host_time_ms(fn, rounds: int = 3, warm: bool = True) -> float:
+    """Median wall time of `fn` (which synchronizes on the host itself),
+    after a warm call unless the caller has just made one."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(rounds):
@@ -274,7 +334,7 @@ def phase_build():
           "wall_s": time.perf_counter() - t0, "ptxas": ptxas})
 
 
-def check_als(torch, name, W, mask, init, max_iter, stable_iters):
+def check_als(torch, name, W, mask, init, max_iter, stable_iters, plain_rounds=3):
     """The ALS kernel against its plain version on the same inputs: both run
     the same f32 operations in the same order, so x_bin and the iteration
     count must be equal."""
@@ -295,7 +355,8 @@ def check_als(torch, name, W, mask, init, max_iter, stable_iters):
            "max_abs_err": float(np.abs(xk.astype(np.float32) - xp.astype(np.float32)).max())}
     res["ms"] = cuda_time_ms(lambda: als_kernel.match_als(W, mask, init, **kw), reps=20)
     res.update(als_launch_fields(n, rank, 1, res["ms"], ik))
-    res["plain_ms"] = host_time_ms(lambda: association.match_als(W, mask, init, **kw))
+    res["plain_ms"] = host_time_ms(lambda: association.match_als(W, mask, init, **kw),
+                                   rounds=plain_rounds, warm=False)
     # W f32 and the mask bytes read, init_A read, x_bin bytes and iters written
     n_bytes = n * n * 4 + n * n + n * rank * 4 + n * n + 4
     res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, als_ops(n, rank, ik))
@@ -316,28 +377,37 @@ def als_launch_fields(n: int, rank: int, C: int, ms: float, iters: int) -> dict:
             "ms_per_iter": ms / max(iters, 1)}
 
 
-def als_seeded_case(torch, dev, name, seed, sizes, n_people, rank):
+def als_seeded_case(torch, dev, name, seed, sizes, n_people, rank, max_iter=100,
+                    stable_iters=10, plain_rounds=3):
     from multiview_motion_capture_torch.ops import association
 
     W = torch.as_tensor(als_problem(seed, sizes, n_people), device=dev)
     mask = torch.as_tensor(association.block_diag_mask(sizes), device=dev)
     init = torch.as_tensor(association.default_init_factor(W.shape[0], rank), device=dev)
-    return check_als(torch, name, W, mask, init, max_iter=100, stable_iters=10)
+    return check_als(torch, name, W, mask, init, max_iter=max_iter, stable_iters=stable_iters,
+                     plain_rounds=plain_rounds)
 
 
-def als_frame0_case(torch, dev, seq, cfg):
+def als_frame0_case(torch, dev, seq, cfg, name="frame0", plain_rounds=3, app=None):
     """The main path's own first ALS problem: the spatial-only similarity of
-    the scene's first frame (no live track yet), whose ALS does not settle
-    within the iteration cap, so its result depends on every rounding."""
+    the scene's first frame (no live track yet; with `app`, the scene's
+    embeddings, its appearance term at the gain of a fresh state), whose
+    ALS does not settle within the iteration cap on SHELF_BENCH, so its
+    result depends on every rounding."""
     from multiview_motion_capture_torch import tracker
     from multiview_motion_capture_torch.data.ingest import filter_bad_poses
 
     b = filter_bad_poses(seq.batch, cfg)
     ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=dev)
+    kw = {}
+    if app is not None:
+        kw = dict(app=torch.as_tensor(app[0], device=dev), app_gain=tracker._appearance_gain(
+            cfg, tracker.TrackerState.zeros(cfg, device=dev)))
     W, _ = tracker._spatial_similarity(ctx, torch.as_tensor(b.kps[0], device=dev),
-                                       torch.as_tensor(b.valid[0], device=dev))
-    return check_als(torch, "frame0", W.contiguous(), ctx.diag_mask, ctx.init_A,
-                     max_iter=cfg.als_max_iter, stable_iters=cfg.als_stable_iters)
+                                       torch.as_tensor(b.valid[0], device=dev), **kw)
+    return check_als(torch, name, W.contiguous(), ctx.diag_mask, ctx.init_A,
+                     max_iter=cfg.als_max_iter, stable_iters=cfg.als_stable_iters,
+                     plain_rounds=plain_rounds)
 
 
 def spd_systems(torch, dev, T: int, D: int, seed: int):
@@ -454,7 +524,7 @@ def check_als_batched(torch, name, W, mask, init, max_iter, stable_iters, timing
     res["ms"] = cuda_time_ms(lambda: als_kernel.match_als_batched(W, mask, init, **kw),
                              reps=timing_reps, rounds=3)
     res.update(als_launch_fields(n, rank, C, res["ms"], max(ik)))
-    res["plain_ms"] = host_time_ms(plain, rounds=1)
+    res["plain_ms"] = host_time_ms(plain, rounds=1, warm=False)
     # yardstick: the C problems as C sequential single-problem launches
     res["yardstick"] = "C sequential B1 launches"
     res["yardstick_ms"] = cuda_time_ms(solos, reps=timing_reps, rounds=3)
@@ -532,25 +602,52 @@ def check_fused(torch, dev, T, R, D, seed):
     return res
 
 
-def phase_kernels(torch, dev, seq, cfg):
+def timed(fn, *args, **kwargs) -> dict:
+    """A kernel check's result with its wall seconds (`case_wall_s`)."""
+    t0 = time.perf_counter()
+    res = fn(*args, **kwargs)
+    res["case_wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_kernels(torch, dev, seq, cfg, dseq, dcfg, aseq, acfg, app):
+    # B1's plain version is timed in three rounds in the main row's case and
+    # once elsewhere: one call takes up to ~1.6 s (N = 66)
     als = [
         # main path: SHELF_BENCH's [8 track slots | 5 views x 6 detections]
-        als_seeded_case(torch, dev, "seeded", 0, (8, 6, 6, 6, 6, 6), n_people=8, rank=16),
-        als_frame0_case(torch, dev, seq, cfg),
+        timed(als_seeded_case, torch, dev, "seeded", 0, (8, 6, 6, 6, 6, 6), n_people=8,
+              rank=16),
+        timed(als_frame0_case, torch, dev, seq, cfg, plain_rounds=1),
         # 32 cameras x 10 people plus 16 track slots: N = 336
-        als_seeded_case(torch, dev, "rig32", 1, (16,) + (10,) * 32, n_people=16, rank=32),
+        timed(als_seeded_case, torch, dev, "rig32", 1, (16,) + (10,) * 32, n_people=16,
+              rank=32, plain_rounds=1),
+        # the default preset: [16 track slots | 5 views x 10 detections],
+        # N = 66, rank 32, to its own iteration count under the 1,000 cap
+        timed(als_frame0_case, torch, dev, dseq, dcfg, name="default_frame0", plain_rounds=1),
+        timed(als_seeded_case, torch, dev, "default_seeded", 2, (16,) + (10,) * 5,
+              n_people=16, rank=32, max_iter=dcfg.als_max_iter,
+              stable_iters=dcfg.als_stable_iters, plain_rounds=1),
+        # the appearance scene: [16 track slots | 10 views x 10 detections],
+        # N = 116, rank 32, a cluster of 16 blocks, to its 100-iteration cap
+        timed(als_frame0_case, torch, dev, aseq, acfg, name="appearance_frame0",
+              plain_rounds=1, app=app),
+        timed(als_seeded_case, torch, dev, "appearance_seeded", 3, (16,) + (10,) * 10,
+              n_people=16, rank=32, max_iter=acfg.als_max_iter,
+              stable_iters=acfg.als_stable_iters, plain_rounds=1),
     ]
     # T = 8: SHELF_BENCH's slots; T = 16: the wide rig's; T = 64 off path
-    gj = [check_gj(torch, dev, T, 68, seed)
+    gj = [timed(check_gj, torch, dev, T, 68, seed)
           for T, seed in ((8, 0), (16, 4), (64, 1))]
     als_batched = []
     for name, views, clusters in (("wide64_frame0", 64, 2), ("rig128_4clusters", 128, 4)):
+        t0 = time.perf_counter()
         W, mask, init, wcfg = wide_cluster_problems(torch, dev, views, clusters, seed=0)
         als_batched.append(check_als_batched(torch, name, W, mask, init,
                                              wcfg.als_max_iter, wcfg.als_stable_iters))
+        als_batched[-1]["case_wall_s"] = time.perf_counter() - t0
     # the wide path's LM: 16 slots, 16 views x 32 residuals, 68 parameters
-    fused = [check_fused(torch, dev, 16, 16 * 32, 68, 2)]
-    gj_grid = [check_gj(torch, dev, 16, 68, 3, one_program=False)]
+    fused = [timed(check_fused, torch, dev, 16, 16 * 32, 68, 2)]
+    gj_grid = [timed(check_gj, torch, dev, 16, 68, 3, one_program=False)]
     from multiview_motion_capture_torch.ops import cuda_lib
 
     als_ptxas = [ln.strip() for ln in cuda_lib.ALS_LIB.build_log.splitlines()
@@ -559,8 +656,28 @@ def phase_kernels(torch, dev, seq, cfg):
           "fused_normal_gj": fused, "gj_solve_grid": gj_grid, "als_ptxas": als_ptxas})
     if not all(r["ok"] for r in als + gj + als_batched + fused + gj_grid):
         raise AssertionError("a kernel disagrees with its plain version")
-    return dict(als=als[0], gj_solve=gj[0], als_batched=als_batched[0],
-                fused_normal_gj=fused[0], gj_solve_grid=gj_grid[0])
+    return dict(als=als[0], als_default=als[3], als_appearance=als[5], gj_solve=gj[0],
+                als_batched=als_batched[0], fused_normal_gj=fused[0], gj_solve_grid=gj_grid[0])
+
+
+@contextlib.contextmanager
+def recording_run_offline():
+    """Keep what `pipeline.run`'s passes of `run_offline` return (final
+    state, per-frame outputs), so a phase reads the ALS iterations and the
+    final state of the very run it timed, without a pass of its own."""
+    from multiview_motion_capture_torch import pipeline
+
+    run_offline, passes = pipeline.run_offline, []
+
+    def recording(*args, **kwargs):
+        passes.append(run_offline(*args, **kwargs))
+        return passes[-1]
+
+    pipeline.run_offline = recording
+    try:
+        yield passes
+    finally:
+        pipeline.run_offline = run_offline
 
 
 def count_syncs(fn):
@@ -626,13 +743,19 @@ def phase_slice(torch, dev, seq, cfg):
 DECISIONS = ("track_id", "active", "updated", "spawned", "died_track_id", "matched_pose")
 
 
-def phase_profile(torch, dev, seq, cfg, n_frames: int = 30, name: str = "profile"):
+def phase_profile(torch, dev, seq, cfg, n_frames: int = 30, name: str = "profile",
+                  n_top: int = 8, trace_host: bool = True):
     """Where a steady-state frame's time goes: torch.profiler over
-    `n_frames` frames of the tracker (after one warm pass over them).
-    Device busy time is the sum of the CUDA kernels' own durations (one
-    stream, so they do not overlap); the idle share is the rest of the
-    profiled wall time.  The profiler's own overhead inflates the wall time,
-    so the idle share is an upper bound."""
+    `n_frames` frames of the tracker (after one warm pass over them),
+    tracing the host's operations and the device as every profile of a path
+    since the first slice did, or with `trace_host=False` the device only
+    (as the default preset's path was first profiled: its frames launch
+    ~6,000-7,000 kernels, and tracing the host's operations beside them
+    takes longer than the run it profiles).  Device busy time is the sum of the CUDA
+    kernels' own durations (one stream, so they do not overlap); the idle
+    share is the rest of the profiled wall time.  The profiler's own
+    overhead inflates the wall time, so the idle share is an upper bound,
+    higher when the host is traced."""
     from torch.profiler import ProfilerActivity, profile
 
     from multiview_motion_capture_torch import tracker
@@ -644,7 +767,8 @@ def phase_profile(torch, dev, seq, cfg, n_frames: int = 30, name: str = "profile
     valid = torch.as_tensor(b.valid[:n_frames], device=dev)
     tracker.run_offline(ctx, kps, valid)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * trace_host + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         tracker.run_offline(ctx, kps, valid)
         torch.cuda.synchronize()
@@ -655,8 +779,9 @@ def phase_profile(torch, dev, seq, cfg, n_frames: int = 30, name: str = "profile
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    out = {"phase": name, "frames": n_frames, "wall_ms_per_frame": wall_ms / n_frames,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]
+    out = {"phase": name, "frames": n_frames, "host_traced": trace_host,
+           "wall_ms_per_frame": wall_ms / n_frames,
            "device_busy_ms_per_frame": busy_ms / n_frames if kernels else None,
            "idle_share": 1.0 - busy_ms / wall_ms if kernels else None,
            "kernel_launches_per_frame": len(kernels) / n_frames if kernels else None,
@@ -665,10 +790,10 @@ def phase_profile(torch, dev, seq, cfg, n_frames: int = 30, name: str = "profile
     emit(out)
 
 
-def phase_parity(torch, dev, seq, cfg, frames=PARITY_FRAMES, name="parity"):
+def phase_parity(torch, dev, seq, cfg, frames=PARITY_FRAMES, name="parity", app=None):
     """The first `frames` frames tracked on the card and on the CPU (the
     plain versions of the kernels): decisions must be equal, poses within
-    POSE_TOL_M."""
+    POSE_TOL_M.  `app`: the scene's embeddings when appearance is on."""
     import numpy as np
 
     from multiview_motion_capture_torch import tracker
@@ -679,7 +804,7 @@ def phase_parity(torch, dev, seq, cfg, frames=PARITY_FRAMES, name="parity"):
     outs = {}
     for d in (dev, "cpu"):
         ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=d)
-        _, o = tracker.run_offline(ctx, kps, valid)
+        _, o = tracker.run_offline(ctx, kps, valid, app=None if app is None else app[:frames])
         outs[d] = tracker.outputs_to_numpy(o)
     g, c = outs[dev], outs["cpu"]
     first_diff = {}
@@ -700,17 +825,188 @@ def phase_parity(torch, dev, seq, cfg, frames=PARITY_FRAMES, name="parity"):
         raise AssertionError("card and CPU runs disagree")
 
 
-def wide_quality(res, seq):
+def run_quality(tracklets, seq, n_top=10):
+    """Tracklets, top lengths, reprojection and degenerate poses of a run,
+    and whether every pose is finite."""
     import numpy as np
 
     from multiview_motion_capture_torch import eval as ev
 
-    m = ev.reprojection_metrics(res.tracklets, seq.batch, seq.cameras)
-    q = dict(n_tracklets=m.n_tracklets, top_lengths=m.lengths[:10],
+    m = ev.reprojection_metrics(tracklets, seq.batch, seq.cameras)
+    q = dict(n_tracklets=m.n_tracklets, top_lengths=m.lengths[:n_top],
              mean_reproj_px=m.mean_reproj_px, median_reproj_px=m.median_reproj_px,
              n_degenerate_poses=m.n_degenerate_poses)
-    finite = all(np.isfinite(t.poses_3d).all() for t in res.tracklets)
+    finite = all(np.isfinite(t.poses_3d).all() for t in tracklets)
     return q, finite
+
+
+def coco17(tracklets):
+    """Triangulation-mode poses are COCO order plus the mid-spine;
+    `reprojection_metrics` reads an 18-joint pose as BASIC_18, so they are
+    measured on their 17 COCO joints (the JAX package's metric does the
+    same)."""
+    import numpy as np
+
+    return [dataclasses.replace(t, poses_3d=np.asarray(t.poses_3d)[:, :17]) for t in tracklets]
+
+
+def als_iteration_stats(iters, cap):
+    import numpy as np
+
+    iters = np.asarray(iters)
+    return {"mean": float(iters.mean()), "median": float(np.median(iters)),
+            "max": int(iters.max()), "frames_at_cap": int((iters >= cap).sum()),
+            "frames": int(iters.size)}
+
+
+def gate_quality(name, q, ref):
+    """A path's quality against the JAX package's on the same scene: no
+    degenerate pose, reprojection within REPROJ_GATE_PX (a different
+    grouping on a frame whose ALS does not settle is reported, not
+    gated)."""
+    if (q["n_degenerate_poses"] != 0
+            or abs(q["mean_reproj_px"] - ref["mean_reproj_px"]) > REPROJ_GATE_PX
+            or abs(q["median_reproj_px"] - ref["median_reproj_px"]) > REPROJ_GATE_PX):
+        raise AssertionError(f"{name} quality is off the JAX reference")
+
+
+def phase_default(torch, dev, seq, cfg):
+    """The JAX package's default preset end to end on the card (B1 at N = 66,
+    the Cholesky LM: no LM kernel of the port launches), its quality
+    against the JAX package's run, the timed pass's ALS iterations per
+    frame and the host syncs of both passes."""
+    from multiview_motion_capture_torch import pipeline, tracker
+
+    zero_launch_counts()
+    with recording_run_offline() as passes:
+        res, syncs = count_syncs(lambda: pipeline.run(seq.batch, seq.cameras, cfg, device=dev))
+    launches = launch_counts()
+    q, finite = run_quality(res.tracklets, seq, n_top=6)
+    iters = tracker.outputs_to_numpy(passes[-1][1]).als_iters
+    emit({"phase": "default", "frames": res.n_frames, "fps": res.fps,
+          "track_time_s": res.track_time_s, "timings": res.timings, "quality": q,
+          "reference": DEFAULT_REFERENCE, "reproj_gate_px": REPROJ_GATE_PX,
+          "tracklets_equal_reference": q["n_tracklets"] == DEFAULT_REFERENCE["n_tracklets"],
+          "poses_finite": finite, "als_iters": als_iteration_stats(iters, cfg.als_max_iter),
+          "launches": launches,
+          "launches_per_frame": {k: v / (2 * res.n_frames) for k, v in launches.items()},
+          "host_syncs_per_frame": syncs / (2 * res.n_frames)})
+    if not (finite and q["n_tracklets"] > 0 and launches["als"] > 0):
+        raise AssertionError("default output or kernel launches missing")
+    if any(launches[k] for k in ("gj_solve", "gj_solve_grid", "fused_normal_gj")):
+        raise AssertionError("the Cholesky LM launched a Gauss-Jordan kernel")
+    gate_quality("default", q, DEFAULT_REFERENCE)
+    return launches
+
+
+def phase_no_ik(torch, dev, seq, cfg):
+    """Triangulation mode (`use_ik=False`) on the default preset and scene:
+    no LM, so only B1 launches; reprojection on the 17 COCO joints within
+    the JAX skill's bound and the JAX package's run."""
+    from multiview_motion_capture_torch import pipeline
+
+    zero_launch_counts()
+    res = pipeline.run(seq.batch, seq.cameras, cfg, use_ik=False, device=dev)
+    launches = launch_counts()
+    q, finite = run_quality(coco17(res.tracklets), seq, n_top=6)
+    emit({"phase": "no_ik", "frames": res.n_frames, "fps": res.fps,
+          "track_time_s": res.track_time_s, "quality": q,
+          "reference": DEFAULT_NO_IK_REFERENCE, "reproj_bound_px": NO_IK_REPROJ_BOUND_PX,
+          "poses_finite": finite, "launches": launches})
+    if not (finite and q["n_tracklets"] > 0 and launches["als"] > 0):
+        raise AssertionError("no_ik output or kernel launches missing")
+    if any(launches[k] for k in ("gj_solve", "gj_solve_grid", "fused_normal_gj")):
+        raise AssertionError("triangulation mode launched an LM kernel")
+    if not q["mean_reproj_px"] < NO_IK_REPROJ_BOUND_PX:
+        raise AssertionError("triangulation mode's reprojection is above its bound")
+    gate_quality("no_ik", q, DEFAULT_NO_IK_REFERENCE)
+    return launches
+
+
+def phase_stream(torch, dev, seq, cfg):
+    """The streaming `MvTracker` over the scene's first STREAM_FRAMES
+    frames: one `update` per frame, then `update_batch` in chunks of
+    STREAM_CHUNK with pad_to=STREAM_CHUNK (the tail chunk is short); each
+    must equal `run_offline` on the card bit for bit, every FrameOutput
+    field.  The latency of one `update` (host clock, the output on the
+    host: the device is synchronised) is what an online user waits for a
+    frame."""
+    import numpy as np
+
+    from multiview_motion_capture_torch import MvTracker, tracker
+    from multiview_motion_capture_torch.data.ingest import filter_bad_poses
+
+    b = filter_bad_poses(seq.batch, cfg)
+    kps, valid = b.kps[:STREAM_FRAMES], b.valid[:STREAM_FRAMES]
+    ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=dev)
+    ref = tracker.outputs_to_numpy(tracker.run_offline(ctx, kps, valid)[1])
+
+    zero_launch_counts()
+    online = MvTracker(seq.cameras, cfg, device=dev)
+    ms = []
+    for f in range(STREAM_FRAMES):
+        t0 = time.perf_counter()
+        online.update(f, kps[f], valid[f])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    chunked = MvTracker(seq.cameras, cfg, device=dev)
+    chunk_ms = []
+    for s in range(0, STREAM_FRAMES, STREAM_CHUNK):
+        e = min(s + STREAM_CHUNK, STREAM_FRAMES)
+        t0 = time.perf_counter()
+        chunked.update_batch(list(range(s, e)), kps[s:e], valid[s:e], pad_to=STREAM_CHUNK)
+        chunk_ms.append((time.perf_counter() - t0) * 1e3 / (e - s))
+
+    def differing(outs):
+        return [f for f in tracker.FrameOutput._fields
+                if not np.array_equal(np.stack([getattr(o, f) for o in outs]), getattr(ref, f))]
+
+    bad_update, bad_batch = differing(online.outputs), differing(chunked.outputs)
+    emit({"phase": "stream", "frames": STREAM_FRAMES, "motion_gain": cfg.motion_gain,
+          "chunk": STREAM_CHUNK, "tail_chunk": STREAM_FRAMES % STREAM_CHUNK,
+          "update_ms_median": statistics.median(ms),
+          "update_ms_p95": float(np.percentile(ms, 95)), "update_ms_max": max(ms),
+          "update_batch_ms_per_frame_median": statistics.median(chunk_ms),
+          "update_bit_equal_run_offline": not bad_update,
+          "update_batch_bit_equal_run_offline": not bad_batch,
+          "fields_differing": {"update": bad_update, "update_batch": bad_batch},
+          "tracklets": len(online.tracklets()), "launches": launches})
+    if bad_update or bad_batch or launches["als"] == 0:
+        raise AssertionError("the streaming tracker differs from run_offline")
+    return launches
+
+
+def phase_appearance(torch, dev, seq, cfg, app):
+    """Appearance evidence end to end on the card (B1 as a cluster of 16 at
+    N = 116, B2), its quality against the JAX package's run, and the final
+    auto-gain statistics."""
+    from multiview_motion_capture_torch import pipeline, tracker
+
+    zero_launch_counts()
+    with recording_run_offline() as passes:
+        res = pipeline.run(seq.batch, seq.cameras, cfg, app=app, device=dev)
+    launches = launch_counts()
+    q, finite = run_quality(res.tracklets, seq)
+    state, o = passes[-1]
+    stats = state.app_stats.cpu().tolist()
+    emit({"phase": "appearance", "frames": res.n_frames, "fps": res.fps,
+          "track_time_s": res.track_time_s, "timings": res.timings, "quality": q,
+          "reference": APPEARANCE_REFERENCE, "reproj_gate_px": REPROJ_GATE_PX,
+          "tracklets_equal_reference": q["n_tracklets"] == APPEARANCE_REFERENCE["n_tracklets"],
+          "poses_finite": finite,
+          "app_stats": dict(zip(("cos_same", "cos_diff", "weight", "var_same"), stats)),
+          "als_iters": als_iteration_stats(tracker.outputs_to_numpy(o).als_iters,
+                                           cfg.als_max_iter),
+          "mean_concurrent_tracks": res.mean_concurrent_tracks, "launches": launches,
+          "launches_per_frame": {k: v / (2 * res.n_frames) for k, v in launches.items()}})
+    if not (finite and q["n_tracklets"] > 0 and launches["als"] > 0
+            and launches["gj_solve"] > 0):
+        raise AssertionError("appearance output or kernel launches missing")
+    if not (stats[2] > 0.5 and all(map(math.isfinite, stats))):
+        raise AssertionError("the auto-gain statistics did not collect")
+    gate_quality("appearance", q, APPEARANCE_REFERENCE)
+    return launches
 
 
 def phase_wide(torch, dev, seq, cfg):
@@ -727,7 +1023,7 @@ def phase_wide(torch, dev, seq, cfg):
     zero_launch_counts()
     res = pipeline.run(seq.batch, seq.cameras, cfg, device=dev)
     launches = launch_counts()
-    q, finite = wide_quality(res, seq)
+    q, finite = run_quality(res.tracklets, seq)
 
     b = filter_bad_poses(seq.batch, cfg)
     ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=dev)
@@ -772,8 +1068,8 @@ def phase_wide_fused(torch, dev, seq, cfg, gj_res):
     zero_launch_counts()
     res = pipeline.run(seq.batch, seq.cameras, cfg, device=dev)
     launches = launch_counts()
-    q, finite = wide_quality(res, seq)
-    q_gj, _ = wide_quality(gj_res, seq)
+    q, finite = run_quality(res.tracklets, seq)
+    q_gj, _ = run_quality(gj_res.tracklets, seq)
 
     def structure(r):
         return [(t.track_id, list(t.frame_idxs), np.asarray(t.matched_pose).tolist())
@@ -806,17 +1102,38 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from multiview_motion_capture_torch.config import SHELF_BENCH, PipelineConfig
-    from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
+    from multiview_motion_capture_torch.data.synthetic import (
+        synthetic_appearance,
+        synthetic_sequence,
+    )
     from multiview_motion_capture_torch.ops import cuda_lib
 
     smi_line = phase_env(torch)
     run_phase("build", phase_build)
     cfg = dataclasses.replace(SHELF_BENCH, max_frames=None)
-    seq = synthetic_sequence(n_frames=300, n_people=4, n_views=5, cfg=cfg, seed=0)
-    checks = run_phase("kernels", phase_kernels, torch, "cuda", seq, cfg)
+    seq = synthetic_sequence(cfg=cfg, **SCENE)
+    dcfg = PipelineConfig(**DEFAULT_CFG)
+    dseq = synthetic_sequence(cfg=dcfg, **SCENE)
+    acfg = PipelineConfig(**APPEARANCE_CFG)
+    aseq = synthetic_sequence(cfg=acfg, **APPEARANCE_SCENE)
+    app = synthetic_appearance(aseq, **APPEARANCE_EMBED)
+    checks = run_phase("kernels", phase_kernels, torch, "cuda", seq, cfg, dseq, dcfg,
+                       aseq, acfg, app)
     slice_launches = run_phase("slice", phase_slice, torch, "cuda", seq, cfg)
     run_phase("parity", phase_parity, torch, "cuda", seq, cfg)
     run_phase("profile", phase_profile, torch, "cuda", seq, cfg)
+
+    default_launches = run_phase("default", phase_default, torch, "cuda", dseq, dcfg)
+    run_phase("default_parity", phase_parity, torch, "cuda", dseq, dcfg,
+              DEFAULT_PARITY_FRAMES, "default_parity")
+    run_phase("default_profile", phase_profile, torch, "cuda", dseq, dcfg,
+              DEFAULT_PROFILE_FRAMES, "default_profile", 12, False)
+    no_ik_launches = run_phase("no_ik", phase_no_ik, torch, "cuda", dseq, dcfg)
+    stream_launches = run_phase("stream", phase_stream, torch, "cuda", dseq,
+                                dataclasses.replace(dcfg, motion_gain=1.0))
+    app_launches = run_phase("appearance", phase_appearance, torch, "cuda", aseq, acfg, app)
+    run_phase("appearance_parity", phase_parity, torch, "cuda", aseq, acfg,
+              APPEARANCE_PARITY_FRAMES, "appearance_parity", app)
 
     wcfg = PipelineConfig.wide(WIDE_SCENE["n_views"], max_frames=None)
     wseq = synthetic_sequence(cfg=wcfg, **WIDE_SCENE)
@@ -828,7 +1145,9 @@ def main() -> int:
     run_phase("wide_profile", phase_profile, torch, "cuda", wseq, wcfg, WIDE_PROFILE_FRAMES,
               "wide_profile")
 
-    paths = {"slice": slice_launches, "wide": wide_launches, "wide_fused": fused_launches}
+    paths = {"slice": slice_launches, "default": default_launches, "no_ik": no_ik_launches,
+             "stream": stream_launches, "appearance": app_launches, "wide": wide_launches,
+             "wide_fused": fused_launches}
 
     def row(kernel, replaces, r, library_ms):
         by_path = {p: c[kernel.name] for p, c in paths.items() if c[kernel.name]}
@@ -848,8 +1167,15 @@ def main() -> int:
         return out
 
     tpu = "multiview_motion_capture_tpu/ops/"
+    als_row = row(cuda_lib.ALS, tpu + "als_pallas.py:130", checks["als"], None)
+    # B1 at the default preset's shape (N = 66, rank 32) and the appearance
+    # scene's (N = 116, rank 32, a cluster of 16), the same fields
+    for key, case in (("at_default_preset", "als_default"), ("at_appearance", "als_appearance")):
+        als_row[key] = {k: checks[case][k] for k in (
+            "case", "n", "rank", "iters_kernel", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "cluster", "ms_per_iter")}
     table = {"kernels": [
-        row(cuda_lib.ALS, tpu + "als_pallas.py:130", checks["als"], None),
+        als_row,
         row(cuda_lib.GJ_SOLVE, tpu + "solve_pallas.py:55", checks["gj_solve"],
             checks["gj_solve"]["library_ms"]),
         row(cuda_lib.ALS_BATCHED, tpu + "als_pallas.py:282", checks["als_batched"], None),

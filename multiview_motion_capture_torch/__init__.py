@@ -1,13 +1,13 @@
 """PyTorch/CUDA port of the multi-view motion-capture framework.
 
-Runs the JAX package's main path (`pipeline.run`: detection filter ->
-per-frame tracker step with epipolar similarity, ALS association, track
-rescue/lifecycle, triangulation and batched LM inverse kinematics ->
-tracklets) on an NVIDIA GPU.  The two TPU kernels of that path are CUDA C++
-kernels for Hopper under `csrc/`, each beside a plain torch version that
-serves CPU tensors.
+Runs the JAX package's tracker (`pipeline.run`: detection filter ->
+per-frame tracker step with epipolar similarity, optional appearance and
+motion evidence, ALS association, track rescue/lifecycle, triangulation and
+batched LM inverse kinematics -> tracklets; offline or streaming) on an
+NVIDIA GPU.  The TPU kernels are CUDA C++ kernels for Hopper under `csrc/`,
+each beside a plain torch version that serves CPU tensors.
 
-Entry points (`pipeline.run`, `tracker.TrackerContext.build`,
+Entry points (`pipeline.run`, `MvTracker`, `tracker.TrackerContext.build`,
 `tracker.run_offline`) run on `device="cuda"` unless the caller passes
 `device="cpu"`; without a GPU the default raises.  This package imports
 torch and numpy only, never JAX or the JAX package.
@@ -16,3 +16,4 @@ torch and numpy only, never JAX or the JAX package.
 __version__ = "0.1.0"
 
 from multiview_motion_capture_torch.config import PipelineConfig  # noqa: F401
+from multiview_motion_capture_torch.tracker import MvTracker  # noqa: F401

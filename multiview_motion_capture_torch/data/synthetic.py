@@ -222,3 +222,35 @@ def synthetic_sequence(
         gt_person_scale=gt_person_scale,
         gt_bone_factors=gt_bone_factors,
     )
+
+
+def synthetic_appearance(seq: SyntheticSequence, dim: int = 16, noise: float = 0.25,
+                         seed: int = 0, shared_frac: float = 0.0) -> np.ndarray:
+    """Idealized per-detection appearance embeddings for association studies
+    (the JAX package's `synthetic_appearance`, bit-identical from the same
+    sequence and seed): each ground-truth person gets a random unit identity
+    vector, each valid detection slot `unit(identity + noise * randn)`.
+    `noise` sets the quality (0.25: same-person cosine ~0.97, cross-person
+    ~0).  `shared_frac` mixes one common component into every identity,
+    identity_p = unit(sqrt(f) shared + sqrt(1 - f) unique_p), as real
+    extractors share domain structure (0.83 gives the cross-person cosine
+    ~0.83 of a keypoint-colour-layout descriptor).
+
+    Returns (F, V, P, dim) float32, zero rows for empty slots."""
+    rng = np.random.RandomState(seed + 104729)
+    F, V, P = seq.gt_slot_person.shape
+    n_people = seq.gt_3d.shape[1]
+    ident = rng.randn(n_people, dim)
+    ident /= np.linalg.norm(ident, axis=1, keepdims=True)
+    if shared_frac > 0:
+        shared = rng.randn(dim)
+        shared /= np.linalg.norm(shared)
+        ident = np.sqrt(shared_frac) * shared[None] + np.sqrt(1.0 - shared_frac) * ident
+        ident /= np.linalg.norm(ident, axis=1, keepdims=True)
+    app = np.zeros((F, V, P, dim), dtype=np.float32)
+    person = seq.gt_slot_person
+    ok = person >= 0
+    vecs = ident[np.clip(person, 0, None)] + noise * rng.randn(F, V, P, dim)
+    vecs /= np.maximum(np.linalg.norm(vecs, axis=-1, keepdims=True), 1e-9)
+    app[ok] = vecs[ok].astype(np.float32)
+    return app

@@ -1,16 +1,17 @@
 """Batched Levenberg-Marquardt inverse kinematics on reprojection residuals.
 
 Port of `multiview_motion_capture_tpu/ops/ik.py` (ref:src/
-inverse_kinematics.py:202-433) for the batched solvers: all T track slots
-solve at once.  Each LM iteration either assembles the damped normal
-equations with two batched products and solves them in one launch of the
-batched Gauss-Jordan kernel (solver "gj"), or hands [J | r] to the fused
-kernel that forms and solves them in one launch (solver "gj_fused"; both in
-`ops/solve_kernel.py`).  Projections are shared (V, 3, 4) or per slot
-(T, V, 3, 4): the tracker's top-k view subset on wide rigs.
+inverse_kinematics.py:202-433): all T track slots solve at once.  Each LM
+iteration either assembles the damped normal equations with two batched
+products and solves them in one launch of the batched Gauss-Jordan kernel
+(solver "gj"), hands [J | r] to the fused kernel that forms and solves them
+in one launch (solver "gj_fused"; both in `ops/solve_kernel.py`), or solves
+each slot's system by a Cholesky factor (solver "chol", the JAX package's
+per-slot `_lm_solve`; a library factorization there as here, no TPU
+kernel).  Projections are shared (V, 3, 4) or per slot (T, V, 3, 4): the
+tracker's top-k view subset on wide rigs.
 
 Parameter packing: x = [root(3) | euler(18*3) | side_bone_lens(11)] = 68.
-The per-slot "chol" solver of the JAX package is not ported yet.
 """
 from __future__ import annotations
 
@@ -63,6 +64,8 @@ _FREE_ALL = np.ones(N_PARAMS, dtype=np.float32)
 # this many iterations (frozen slots do not change, so iterations past the
 # last active one are no-ops: the check saves work and changes no result)
 LM_SYNC_EVERY = 5
+
+SOLVERS = ("chol", "gj", "gj_fused")
 
 
 class IkParams(NamedTuple):
@@ -249,21 +252,36 @@ def _residual_and_jacobian(x: Tensor, skel: Skeleton, obs: Tensor, view_w: Tenso
     return r, J.reshape(T, -1, N_PARAMS)
 
 
+def _cholesky_solve(A: Tensor, g: Tensor) -> Tensor:
+    """x with A[t] x[t] = g[t] by each slot's Cholesky factor and two
+    triangular solves (ik.py:329-333 of the JAX package), in A's dtype.  A
+    slot whose factor fails gets a NaN step, as the JAX factor of a matrix
+    that is not positive definite gives one: its cost is then not finite,
+    so the step is not taken.  Nothing is checked on the host."""
+    L, info = torch.linalg.cholesky_ex(A)
+    y = torch.linalg.solve_triangular(L, g[..., None], upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)[..., 0]
+    return torch.where((info == 0)[:, None], x, torch.full_like(x, float("nan")))
+
+
 def _lm_solve_batched(x0: Tensor, skel: Skeleton, obs: Tensor, view_w: Tensor,
                       P: Tensor, free_mask: Tensor, n_iters: int, eps: float,
                       lam0: float, lam_up: float, lam_down: float,
                       ftol: float = 2e-6, xtol: float = 1e-6,
-                      fused: bool = False) -> Tensor:
+                      solver: str = "gj") -> Tensor:
     """Batched LM over all T slots, every slot's damped normal equations
-    solved in one kernel launch per iteration: the batched Gauss-Jordan on
-    normal equations assembled by two batched products, or (`fused`) the
-    fused kernel that forms them from [J | r] itself (ik.py:413-417 of the
-    JAX package).
+    solved at once per iteration: by the batched Gauss-Jordan kernel on
+    normal equations assembled by two batched products ("gj"), by the fused
+    kernel that forms them from [J | r] itself ("gj_fused", ik.py:413-417 of
+    the JAX package), or by each slot's Cholesky factor ("chol", the JAX
+    package's per-slot `_lm_solve`, ik.py:280-357, whose vmapped
+    `while_loop` runs each slot as this masked loop does).
 
     The parameters, the damping and the kernels' inputs are f32; residuals,
     jacobians, the normal equations and the costs are formed in
     `WORK_DTYPE` and rounded once where they enter a kernel
-    (utils/precision.py), so the card and the CPU step alike.
+    (utils/precision.py), so the card and the CPU step alike.  The Cholesky
+    route factors in `WORK_DTYPE` and rounds the step once to f32.
 
     A slot freezes once it converges; slots with no observations start
     frozen (they can never take a "better" step, ik.py:441-449).  Frozen
@@ -288,7 +306,7 @@ def _lm_solve_batched(x0: Tensor, skel: Skeleton, obs: Tensor, view_w: Tensor,
             break
         _, J = _residual_and_jacobian(x.to(wd), skel, obs, view_w, P, eps)
         J = J * free_mask[None, None, :]
-        if fused:
+        if solver == "gj_fused":
             Jaug = torch.cat([J, r[:, :, None]], dim=2).to(dt)
             dx = -fused_normal_solve(Jaug, lam, 1.0 - free_mask) * free_mask[None, :]
         else:
@@ -296,8 +314,11 @@ def _lm_solve_batched(x0: Tensor, skel: Skeleton, obs: Tensor, view_w: Tensor,
             g = torch.einsum("trd,tr->td", J, r)
             ridge = 1e-6 * (torch.diagonal(JtJ, dim1=1, dim2=2).sum(-1) / n) + 1e-6
             A = JtJ + (lam.to(wd) + ridge)[:, None, None] * eye + frozen_diag[None]
-            dx = -batched_spd_solve(A.to(dt).contiguous(),
-                                    g.to(dt).contiguous()) * free_mask[None, :]
+            if solver == "chol":
+                step = _cholesky_solve(A, g).to(dt)
+            else:
+                step = batched_spd_solve(A.to(dt).contiguous(), g.to(dt).contiguous())
+            dx = -step * free_mask[None, :]
         x_new = x + dx
         r_new = residual(x_new)
         c_old = (r * r).sum(dim=1)
@@ -319,7 +340,7 @@ def _lm_solve_batched(x0: Tensor, skel: Skeleton, obs: Tensor, view_w: Tensor,
 def solve_two_stage(init: IkParams, skel: Skeleton, obs_coco: Tensor,
                     view_w: Tensor, P: Tensor, n_iters: int, eps: float = 1e-5,
                     lam0: float = 1e-3, lam_up: float = 10.0,
-                    lam_down: float = 0.33, stages: int = 2, solver: str = "gj",
+                    lam_down: float = 0.33, stages: int = 2, solver: str = "chol",
                     ftol: float = 2e-6, xtol: float = 1e-6) -> Tuple[IkParams, Tensor]:
     """The reference's solve(): pose-only then pose+bone-lengths
     (ref:src/inverse_kinematics.py:402-407), batched over track slots.
@@ -327,11 +348,11 @@ def solve_two_stage(init: IkParams, skel: Skeleton, obs_coco: Tensor,
     init: IkParams batched (T, ...); obs_coco: (T, V, 17, 3); view_w: (T, V)
     weights, 0 for cameras not in the match; P: (V, 3, 4) shared, or
     (T, V, 3, 4) per slot (the tracker's top-k view subset on wide rigs,
-    cfg.ik_max_views).  solver: "gj" or "gj_fused".  stages=1 runs one
-    all-parameter solve.  Returns (params, joints (T, 18, 3))."""
-    if solver not in ("gj", "gj_fused"):
-        raise NotImplementedError(
-            f"ik solver {solver!r} is not ported; the port runs 'gj' and 'gj_fused'")
+    cfg.ik_max_views).  solver: "chol" (the JAX package's default), "gj" or
+    "gj_fused".  stages=1 runs one all-parameter solve.  Returns (params,
+    joints (T, 18, 3))."""
+    if solver not in SOLVERS:
+        raise ValueError(f"unknown ik solver {solver!r}; expected one of {SOLVERS}")
     dev = obs_coco.device
     obs = add_mid_spine(obs_coco)
     free_pose = on_device(_FREE_POSE, dev)
@@ -341,7 +362,7 @@ def solve_two_stage(init: IkParams, skel: Skeleton, obs_coco: Tensor,
     def stage(x, mask):
         return _lm_solve_batched(x, skel, obs, view_w, P, mask, n_iters, eps,
                                  lam0, lam_up, lam_down, ftol=ftol, xtol=xtol,
-                                 fused=(solver == "gj_fused"))
+                                 solver=solver)
 
     if stages == 1:
         x = stage(x0, free_all)

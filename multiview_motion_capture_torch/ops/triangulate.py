@@ -5,7 +5,8 @@ Port of `multiview_motion_capture_tpu/ops/triangulate.py`
 eigensolve per keypoint in intrinsics-normalized coordinates (f32
 conditioning), then a fixed number of Gauss-Newton steps on the
 score-weighted pixel reprojection residual with adjugate 3x3 solves.
-Batched over any leading dims (the tracker passes one problem per slot).
+Batched over any leading dims (the tracker passes one problem per slot),
+with the cameras shared or given per problem (a track's top-k views).
 """
 from __future__ import annotations
 
@@ -44,8 +45,10 @@ def triangulate_points(P: Tensor, K_inv: Tensor, kps: Tensor, view_mask: Tensor,
     min_score are used; with fewer than 2 such views, all masked views are.
     The output score is the mean score over the used views.
 
-    P: (V, 3, 4); K_inv: (V, 3, 3); kps: (..., V, K, 3); view_mask: (..., V)
-    bool.  Returns (..., K, 4) = (x, y, z, score)."""
+    P: (V, 3, 4) shared, or (T, V, 3, 4) per problem with kps (T, V, K, 3);
+    K_inv: (V, 3, 3) or (T, V, 3, 3) alike; kps: (..., V, K, 3); view_mask:
+    (..., V) bool.  Returns (..., K, 4) = (x, y, z, score)."""
+    per_slot = P.dim() == 4
     vm = view_mask.to(P.dtype)
     scores = kps[..., 2] * vm[..., None]                         # (..., V, K)
     good = (kps[..., 2] >= min_score) & view_mask[..., None]
@@ -55,9 +58,9 @@ def triangulate_points(P: Tensor, K_inv: Tensor, kps: Tensor, view_mask: Tensor,
                     good.to(P.dtype))                            # (..., V, K)
     out_score = (scores * w).sum(dim=-2) / w.sum(dim=-2).clamp(min=1.0)
 
-    P_norm = torch.einsum("vab,vbc->vac", K_inv, P)
+    P_norm = torch.einsum("...vab,...vbc->...vac" if per_slot else "vab,vbc->vac", K_inv, P)
     homo = torch.cat([kps[..., :2], torch.ones_like(kps[..., :1])], dim=-1)
-    xyn = torch.einsum("vab,...vkb->...vka", K_inv, homo)
+    xyn = torch.einsum("tvab,tvkb->tvka" if per_slot else "vab,...vkb->...vka", K_inv, homo)
     xy_norm = xyn[..., :2] / (xyn[..., 2:3] + 1e-12)            # (..., V, K, 2)
 
     pts = _dlt_normal_equations(P_norm, xy_norm.transpose(-3, -2),
@@ -65,17 +68,19 @@ def triangulate_points(P: Tensor, K_inv: Tensor, kps: Tensor, view_mask: Tensor,
 
     obs_xy = kps[..., :2].transpose(-3, -2)                      # (..., K, V, 2)
     obs_s = (kps[..., 2] * vm[..., None]).transpose(-1, -2)      # (..., K, V)
-    P2 = P[:, :2, :3]                                            # (V, 2, 3)
-    P3 = P[:, 2, :3]                                             # (V, 3)
+    Pk = P[:, None] if per_slot else P                           # ([T, 1,] V, 3, 4)
+    P2 = Pk[..., :2, :3]                                         # ([T, 1,] V, 2, 3)
+    P3 = Pk[..., 2, :3]                                          # ([T, 1,] V, 3)
     eye3 = 1e-8 * torch.eye(3, dtype=P.dtype, device=P.device)
 
     for _ in range(refine_iters):
         homo_p = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
-        proj = torch.einsum("vab,...kb->...kva", P, homo_p)      # (..., K, V, 3)
+        proj = torch.einsum("tvab,tkb->tkva" if per_slot else "vab,...kb->...kva",
+                            P, homo_p)                           # (..., K, V, 3)
         wq = proj[..., 2:3] + eps
         uv = proj[..., :2] / wq
         r = (uv - obs_xy) * obs_s[..., None]                     # (..., K, V, 2)
-        J = ((P2 - uv[..., None] * P3[:, None, :]) / wq[..., None]) \
+        J = ((P2 - uv[..., None] * P3[..., None, :]) / wq[..., None]) \
             * obs_s[..., None, None]                             # (..., K, V, 2, 3)
         Jf = J.flatten(-3, -2)                                   # (..., K, 2V, 3)
         rf = r.flatten(-2, -1)                                   # (..., K, 2V)

@@ -1,8 +1,9 @@
 """End-to-end run: filter detections, track the whole sequence, emit
 tracklets.
 
-Port of `multiview_motion_capture_tpu/pipeline.py:run` for the main path,
-plus `filter_ghost_tracklets` and the tracklet pickle writer/reader with the
+Port of `multiview_motion_capture_tpu/pipeline.py:run` (IK or
+triangulation mode, appearance embeddings; not yet its checkpointing, re-ID,
+crossing repair or device mesh), plus `filter_ghost_tracklets` and the tracklet pickle writer/reader with the
 same schema of plain dicts, so files load in either package (or with
 neither installed).
 """
@@ -86,7 +87,7 @@ def _density_guard(cfg: PipelineConfig, active: np.ndarray) -> float:
 
 
 def run(batch: FrameBatch, cams: CameraBank, cfg: Optional[PipelineConfig] = None,
-        use_ik: bool = True, skip_first_frame: bool = False,
+        use_ik: bool = True, skip_first_frame: bool = False, app=None,
         device="cuda") -> RunResult:
     """Filter detections, then track and solve the whole sequence on
     `device` ("cuda" unless the caller asks for "cpu").  The sequence is
@@ -94,8 +95,11 @@ def run(batch: FrameBatch, cams: CameraBank, cfg: Optional[PipelineConfig] = Non
     costs (the kernels' build and load at first use, CUDA warm-up), the
     second is the steady-state `track_time_s`.
 
-    `skip_first_frame` replicates the reference's off-by-one (frm_idx starts
-    at 1, ref:src/motion_capture.py:1058-1063)."""
+    `use_ik=False` tracks in triangulation mode.  `app` (F, V, P, D):
+    per-detection appearance embeddings, needed when
+    `cfg.appearance_dim > 0`.  `skip_first_frame` replicates the
+    reference's off-by-one (frm_idx starts at 1,
+    ref:src/motion_capture.py:1058-1063)."""
     dev = resolve_device(device)
     cfg = cfg or PipelineConfig(n_views=batch.n_views)
     timer = _StageTimer(dev)
@@ -108,17 +112,26 @@ def run(batch: FrameBatch, cams: CameraBank, cfg: Optional[PipelineConfig] = Non
     if cfg.max_frames is not None:
         end = min(batch.n_frames, start + cfg.max_frames)
     frame_idxs = np.arange(batch.n_frames)[start:end]
+    if cfg.appearance_dim > 0:
+        if app is None:
+            raise ValueError("cfg.appearance_dim > 0: run() needs "
+                             "app=(F, V, P, D) detection embeddings")
+        app = np.asarray(app)[start:end]
+    else:
+        app = None
 
     t0 = time.perf_counter()
     with timer.stage("build_context"):
         ctx = TrackerContext.build(cams, cfg, use_ik=use_ik, device=dev)
         kps = torch.as_tensor(batch.kps[start:end], device=dev)
         valid = torch.as_tensor(batch.valid[start:end], device=dev)
+        if app is not None:
+            app = torch.as_tensor(app, dtype=torch.float32, device=dev)
     with timer.stage("warmup+track"):
-        run_offline(ctx, kps, valid)
+        run_offline(ctx, kps, valid, app=app)
     with timer.stage("track"):
         t1 = time.perf_counter()
-        _, outputs = run_offline(ctx, kps, valid)
+        _, outputs = run_offline(ctx, kps, valid, app=app)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         track_time = time.perf_counter() - t1

@@ -2,17 +2,21 @@
 
 Port of `multiview_motion_capture_tpu/tracker.py` (the reference's
 `MvTracker` state machine, ref:src/motion_capture.py:288-963, as a function
-over a fixed-size slot-array state) with IK on, no appearance evidence and
-no motion prediction.  Association is one ALS solve over the whole
-[tracklets | detections] matrix, or on wide rigs (`cfg.assoc_clusters > 1`)
-one batched solve over interleaved camera clusters merged into the global
-matrix; `cfg.ik_max_views` caps each track's LM solve at its best views.
-Every per-frame quantity stays on the step's
-device; the host reads two flags per frame (whether any slot updates and
-whether any spawns) so that the LM solves run only when needed, and the
-cold LM solve checks every few iterations whether a slot is still active.
-The JAX step's `lax.cond`s and LM `while_loop` give the same results: their
-outputs are selected per slot by the same masks.
+over a fixed-size slot-array state), every option but a device mesh: IK or
+triangulation mode (`use_ik`), the constant-velocity association gate
+(`cfg.motion_gain`) and appearance evidence (`cfg.appearance_dim > 0`, one
+(V, P, D) embedding per detection and frame).  Association is one ALS solve
+over the whole [tracklets | detections] matrix, or on wide rigs
+(`cfg.assoc_clusters > 1`) one batched solve over interleaved camera
+clusters merged into the global matrix; `cfg.ik_max_views` caps each
+track's LM solve (or refined triangulation) at its best views.  Every
+per-frame quantity stays on the step's device; the host reads two flags per
+frame (whether any slot updates and whether any spawns) so that the LM
+solves run only when needed, and the LM loop checks every few iterations
+whether a slot is still active.  The JAX step's `lax.cond`s and LM
+`while_loop`s give the same results: their outputs are selected per slot by
+the same masks.  `run_offline` steps a whole sequence, `MvTracker` one
+frame or one chunk at a time (the online mode).
 
 Semantics parity map (ref:src/motion_capture.py):
 - predict / time_since_update            :349-350, 874-875
@@ -80,9 +84,10 @@ class TrackerState:
     side_lens: Tensor          # (T, 11)
     pose3d: Tensor             # (T, 18, 3) current 3D pose (FK joints)
     pose3d_score: Tensor       # (T, 18)
-    root_vel: Tensor           # (T, 3) (motion prediction; zero on this path)
-    app_ema: Tensor            # (T, 0) (appearance; zero-width on this path)
-    app_stats: Tensor          # (4,)
+    root_vel: Tensor           # (T, 3) EMA per-frame root velocity (cfg.motion_gain)
+    app_ema: Tensor            # (T, D) EMA appearance embedding (zero-width when off)
+    app_stats: Tensor          # (4,) auto-gain stats: EMA cos_same, cos_diff, weight,
+                               # var(cos_same)
     next_track_id: Tensor      # () int32
 
     @classmethod
@@ -112,7 +117,9 @@ _INT_FIELDS = ("active", "track_id", "hits", "time_since_update", "next_track_id
 
 def from_numpy_state(arrays: Dict[str, np.ndarray], device="cuda") -> TrackerState:
     """A `TrackerState` from the JAX package's state fields given as numpy
-    arrays (e.g. `{f: np.asarray(getattr(jax_state, f)) for f in fields}`)."""
+    arrays (e.g. `{f: np.asarray(getattr(jax_state, f)) for f in fields}`),
+    the motion (`root_vel`) and appearance (`app_ema`, `app_stats`) state
+    included."""
     dev = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(TrackerState):
@@ -135,22 +142,16 @@ class FrameOutput(NamedTuple):
     pose3d: Tensor        # (T, 18, 3)
     pose3d_score: Tensor  # (T, 18)
     matched_pose: Tensor  # (T, V) int32 matched detection slot per view (-1)
-    app_obs: Tensor       # (T, 0) (appearance; zero-width on this path)
+    app_obs: Tensor       # (T, D) this frame's matched-detection mean embedding per
+                          # slot (unit rows, zero where none; zero-width when off)
     als_iters: Tensor     # () int32
 
 
-def _check_supported(cfg: PipelineConfig, use_ik: bool) -> None:
-    unsupported = []
-    if cfg.appearance_dim != 0:
-        unsupported.append("appearance_dim > 0")
-    if cfg.motion_gain != 0:
-        unsupported.append("motion_gain != 0")
-    if cfg.ik_solver not in ("gj", "gj_fused"):
-        unsupported.append(f"ik_solver={cfg.ik_solver!r} (the port runs 'gj' and 'gj_fused')")
-    if not use_ik:
-        unsupported.append("use_ik=False")
-    if unsupported:
-        raise NotImplementedError("not ported yet: " + ", ".join(unsupported))
+def _check_config(cfg: PipelineConfig) -> None:
+    """Every option of the JAX tracker but a device mesh is ported; what is
+    left to check is the configuration itself."""
+    if cfg.ik_solver not in ik_ops.SOLVERS:
+        raise ValueError(f"ik_solver={cfg.ik_solver!r}; expected one of {ik_ops.SOLVERS}")
     if cfg.assoc_clusters > cfg.n_views:
         raise ValueError(f"assoc_clusters={cfg.assoc_clusters} exceeds n_views={cfg.n_views}")
 
@@ -212,7 +213,7 @@ class TrackerContext:
     def build(cls, cams: CameraBank, cfg: PipelineConfig, use_ik: bool = True,
               device="cuda") -> "TrackerContext":
         dev = resolve_device(device)
-        _check_supported(cfg, use_ik)
+        _check_config(cfg)
         if cams.n_views != cfg.n_views:
             raise ValueError(f"cams has {cams.n_views} views, cfg.n_views={cfg.n_views}")
         high_precision()
@@ -248,7 +249,7 @@ def context_constants_from_numpy(cfg: PipelineConfig, cams: CameraBank,
     default skeleton).  The JAX context's arrays carried across give a
     context whose step starts from the very same constants."""
     dev = resolve_device(device)
-    _check_supported(cfg, use_ik)
+    _check_config(cfg)
     high_precision()
 
     def f32(a):
@@ -301,46 +302,124 @@ def _track_det_distances(ctx: TrackerContext, state: TrackerState, kps: Tensor,
                          det_valid: Tensor, P_mats: Optional[Tensor] = None) -> Tensor:
     """Tracklet -> detection reprojection distances d23 (T, V, P), NaN where
     either side is invalid (the 2D-3D block of ref:src/motion_capture.py:
-    634-741; also feeds the track-rescue gate), in `WORK_DTYPE`.  `P_mats`
-    (V, 3, 4): the cameras of `kps`' views (a cluster's), all cameras by
-    default."""
+    634-741; also feeds the track-rescue gate), in `WORK_DTYPE`.  IK mode
+    holds the 15 BASIC_18 joints seen in COCO against their keypoints,
+    triangulation mode (poses in COCO order plus the mid-spine) the 17 COCO
+    joints.  With `cfg.motion_gain` each track first moves by its
+    constant-velocity prediction.  `P_mats` (V, 3, 4): the cameras of
+    `kps`' views (a cluster's), all cameras by default."""
+    cfg = ctx.cfg
     if P_mats is None:
         P_mats = ctx.cams.P
     dev, wd = kps.device, WORK_DTYPE
-    skel_idx = on_device(B18_COCO_SKEL_IDX, dev)
-    pts = state.pose3d[:, skel_idx, :].to(wd)                     # (T, 15, 3)
-    sc3 = state.pose3d_score[:, skel_idx].to(wd)
-    obs = kps[:, :, on_device(B18_COCO_OBS_IDX, dev), :].to(wd)   # (V, P, 15, 3)
+    pose3d = state.pose3d.to(wd)
+    if cfg.motion_gain:
+        # rigid translation by the EMA root velocity, for the gate only
+        # (time_since_update was already incremented this frame, so it is
+        # the horizon)
+        dt = state.time_since_update.to(wd)
+        shift = cfg.motion_gain * dt[:, None] * state.root_vel.to(wd)   # (T, 3)
+        pose3d = pose3d + shift[:, None, :]
+    if ctx.use_ik:
+        skel_idx = on_device(B18_COCO_SKEL_IDX, dev)
+        pts = pose3d[:, skel_idx, :]                                  # (T, 15, 3)
+        sc3 = state.pose3d_score[:, skel_idx].to(wd)
+        obs = kps[:, :, on_device(B18_COCO_OBS_IDX, dev), :].to(wd)   # (V, P, 15, 3)
+    else:
+        pts = pose3d[:, :17, :]                                       # (T, 17, 3)
+        sc3 = state.pose3d_score[:, :17].to(wd)
+        obs = kps.to(wd)                                              # (V, P, 17, 3)
     d23 = geom.masked_reprojection_error(
         pts[:, None, None], sc3[:, None, None], obs[None],
-        P_mats[None, :, None].to(wd), ctx.cfg.reproj_min_kps_score)  # (T, V, P)
+        P_mats[None, :, None].to(wd), cfg.reproj_min_kps_score)  # (T, V, P)
     t_alive = state.active > 0
     return torch.where(t_alive[:, None, None] & det_valid[None],
                        d23, torch.full_like(d23, float("nan")))
 
 
+def _appearance_gain(cfg: PipelineConfig, state: TrackerState):
+    """The px-per-unit-cosine-distance gain of the appearance penalties
+    (the JAX package's `_appearance_gain`, tracker.py:317-350): the static
+    `cfg.appearance_gain_px`, or with `cfg.appearance_auto_target_px > 0`
+    the gain derived online from the state's matched-vs-unmatched cosine
+    statistics: target / max(gap, min_gap), capped by the noise rule
+    noise_px / std(cos_same), clamped to [0, appearance_auto_max_px], 0
+    when the gap is below `appearance_auto_min_gap` (no identity signal),
+    the static gain until the stat weight reaches 0.5.  A python float
+    (auto off) or a () tensor in `WORK_DTYPE`."""
+    if cfg.appearance_auto_target_px <= 0:
+        return cfg.appearance_gain_px
+    cs, cd, w, vs = state.app_stats.to(WORK_DTYPE).unbind()
+    gap = cs - cd
+    auto = cfg.appearance_auto_target_px / gap.clamp(min=cfg.appearance_auto_min_gap)
+    if cfg.appearance_auto_noise_px > 0:
+        sd = torch.sqrt(vs.clamp(min=1e-12))
+        auto = torch.minimum(auto, cfg.appearance_auto_noise_px / sd.clamp(min=1e-6))
+    auto = auto.clamp(0.0, cfg.appearance_auto_max_px)
+    auto = torch.where(gap >= cfg.appearance_auto_min_gap, auto, torch.zeros_like(auto))
+    return torch.where(w >= 0.5, auto, torch.full_like(auto, cfg.appearance_gain_px))
+
+
+def _cosines(a: Tensor, b: Tensor, spec: str, eps: float = 1e-6) -> Tuple[Tensor, Tensor]:
+    """Cosines between the rows of a and b (einsum `spec` over the last
+    axis), in `WORK_DTYPE`, and where both rows are embeddings (norm above
+    eps; a zero row is a detection or track without one)."""
+    a, b = a.to(WORK_DTYPE), b.to(WORK_DTYPE)
+    na = torch.linalg.vector_norm(a, dim=-1)
+    nb = torch.linalg.vector_norm(b, dim=-1)
+    lead_a, lead_b = na.dim(), nb.dim()
+    na_b = na.reshape(na.shape + (1,) * lead_b)
+    nb_b = nb.reshape((1,) * lead_a + nb.shape)
+    cos = torch.einsum(spec, a, b) / (na_b.clamp(min=eps) * nb_b.clamp(min=eps))
+    return cos, (na_b > eps) & (nb_b > eps)
+
+
+def _appearance_penalty(gain, app_ema: Tensor, app: Tensor) -> Tensor:
+    """Appearance term of the 2D-3D similarity block (tracker.py:352-367 of
+    the JAX package): `gain` pixels per unit cosine distance between a
+    track's EMA embedding and a detection's, zero where either side has
+    none.  app_ema: (T, D); app: (V, P, D).  Returns (T, V, P) in
+    `WORK_DTYPE`."""
+    cos, has = _cosines(app_ema, app, "td,vpd->tvp")
+    return torch.where(has, gain * (1.0 - cos), torch.zeros_like(cos))
+
+
+def _appearance_penalty_d22(gain, app: Tensor) -> Tensor:
+    """The same term between detection pairs, for the 2D-2D block
+    (tracker.py:370-383 of the JAX package).  app: (V, P, D).  Returns
+    (V, P, V, P) in `WORK_DTYPE`."""
+    cos, has = _cosines(app, app, "vpd,wqd->vpwq")
+    return torch.where(has, gain * (1.0 - cos), torch.zeros_like(cos))
+
+
 def _select_views(ctx: TrackerContext, kps: Tensor, det_valid: Tensor, F: Tensor,
-                  view_idx, view_valid):
-    """kps, det_valid, the (V, V) block of F and the cameras restricted to a
-    camera subset (a cluster; all views when `view_idx` is None); a view
-    whose `view_valid` is False (a dead pad) has every detection masked."""
+                  view_idx, view_valid, app: Optional[Tensor] = None):
+    """kps, det_valid, the (V, V) block of F, the cameras and the embeddings
+    restricted to a camera subset (a cluster; all views when `view_idx` is
+    None); a view whose `view_valid` is False (a dead pad) has every
+    detection masked."""
     if view_idx is None:
-        return kps, det_valid, F, ctx.cams.P
+        return kps, det_valid, F, ctx.cams.P, app
     idx = torch.as_tensor(view_idx, dtype=torch.long, device=kps.device)
     det_valid = det_valid[idx]
     if view_valid is not None:
         vv = torch.as_tensor(view_valid, dtype=torch.bool, device=kps.device)
         det_valid = det_valid & vv[:, None]
-    return kps[idx], det_valid, F[idx][:, idx], ctx.cams.P[idx]
+    return (kps[idx], det_valid, F[idx][:, idx], ctx.cams.P[idx],
+            None if app is None else app[idx])
 
 
 def _spatial_time_similarity(ctx: TrackerContext, state: TrackerState, kps: Tensor,
-                             det_valid: Tensor, view_idx=None,
-                             view_valid=None) -> Tuple[Tensor, Tensor, Tensor]:
+                             det_valid: Tensor, view_idx=None, view_valid=None,
+                             app: Optional[Tensor] = None,
+                             app_gain=None) -> Tuple[Tensor, Tensor, Tensor]:
     """The spatial-time similarity matrix (ref:src/motion_capture.py:634-756),
     layout [T tracklet slots | view0 slots | view1 slots | ...].  `view_idx`
     restricts it to a camera subset (a cluster), `view_valid` marks that
-    subset's dead pad views (see `_select_views`).
+    subset's dead pad views (see `_select_views`).  `app` (V, P, D)
+    detection embeddings add the appearance penalties to the 2D-2D and the
+    2D-3D blocks at `app_gain` (default `_appearance_gain` of the state);
+    the returned d23 stays geometric.
     Returns (sim (N, N), elem_valid (N,), d23 (T, V, P)).
 
     Formed in `WORK_DTYPE` and rounded once to f32, as the spatial-only
@@ -348,9 +427,11 @@ def _spatial_time_similarity(ctx: TrackerContext, state: TrackerState, kps: Tens
     the same matrix."""
     cfg = ctx.cfg
     out_dt = kps.dtype
-    kps, det_valid, F_det, P_mats = _select_views(ctx, kps, det_valid, ctx.F_det,
-                                                  view_idx, view_valid)
+    kps, det_valid, F_det, P_mats, app = _select_views(ctx, kps, det_valid, ctx.F_det,
+                                                       view_idx, view_valid, app)
     kps, F_det = kps.to(WORK_DTYPE), F_det.to(WORK_DTYPE)
+    if app is not None and app_gain is None:
+        app_gain = _appearance_gain(cfg, state)
     T, V, P = cfg.max_tracks, kps.shape[0], cfg.max_people
     N = T + V * P
     dev = kps.device
@@ -361,6 +442,8 @@ def _spatial_time_similarity(ctx: TrackerContext, state: TrackerState, kps: Tens
     kb = kps[None, None]
     Fab = F_det[:, None, :, None]
     d22 = geom.masked_symmetric_epipolar_error(ka, kb, Fab, cfg.epipolar_min_kps_score)
+    if app is not None:
+        d22 = d22 + _appearance_penalty_d22(app_gain, app)
     same_view = torch.eye(V, dtype=torch.bool, device=dev)[:, None, :, None]
     pair_valid = det_valid[:, :, None, None] & det_valid[None, None]
     d22 = torch.where(same_view | ~pair_valid, torch.full_like(d22, nan), d22)
@@ -368,8 +451,11 @@ def _spatial_time_similarity(ctx: TrackerContext, state: TrackerState, kps: Tens
     # tracklet -> 2D reprojection block (T, V, P)
     d23 = _track_det_distances(ctx, state, kps, det_valid, P_mats)
     t_alive = state.active > 0
+    # appearance perturbs the similarity only; d23 itself stays geometric
+    # (the rescue pass gates on physical pixels)
+    d23_sim = d23 if app is None else d23 + _appearance_penalty(app_gain, state.app_ema, app)
 
-    d23f = d23.reshape(T, V * P)
+    d23f = d23_sim.reshape(T, V * P)
     dst = torch.cat([
         torch.cat([torch.full((T, T), nan, dtype=kps.dtype, device=dev), d23f], dim=1),
         torch.cat([d23f.T, d22.reshape(V * P, V * P)], dim=1),
@@ -394,7 +480,8 @@ def _spatial_time_similarity(ctx: TrackerContext, state: TrackerState, kps: Tens
 
 
 def _spatial_similarity(ctx: TrackerContext, kps: Tensor, det_valid: Tensor,
-                        view_idx=None, view_valid=None) -> Tuple[Tensor, Tensor]:
+                        view_idx=None, view_valid=None, app: Optional[Tensor] = None,
+                        app_gain=None) -> Tuple[Tensor, Tensor]:
     """The spatial-only similarity (ref:src/motion_capture.py:597-631 +
     ref:src/mv_math_util.py:320-351): raw epipolar distances, 50 for
     same-view pairs, diagonal 0, z-normalized by the matrix's own masked
@@ -405,10 +492,14 @@ def _spatial_similarity(ctx: TrackerContext, kps: Tensor, det_valid: Tensor,
     Formed in `WORK_DTYPE` and rounded once to f32: the card and the CPU
     then give the ALS the same matrix bit for bit.  That matters because the
     ALS may not converge within its iteration cap, and its grouping then
-    depends on every rounding of W."""
+    depends on every rounding of W.
+
+    `app` (V, P, D) detection embeddings add the 2D-2D appearance penalty at
+    `app_gain` (default `cfg.appearance_gain_px`) after the z-statistics,
+    which stay geometric, so the term cannot dilute its own weight."""
     cfg = ctx.cfg
-    kps, det_valid, F_spatial, _ = _select_views(ctx, kps, det_valid, ctx.F_spatial,
-                                                 view_idx, view_valid)
+    kps, det_valid, F_spatial, _, app = _select_views(ctx, kps, det_valid, ctx.F_spatial,
+                                                      view_idx, view_valid, app)
     T, V, P = cfg.max_tracks, kps.shape[0], cfg.max_people
     N = T + V * P
     dev = kps.device
@@ -427,6 +518,10 @@ def _spatial_similarity(ctx: TrackerContext, kps: Tensor, det_valid: Tensor,
     mean = torch.where(valid2, dst, zero).sum() / cnt
     var = torch.where(valid2, (dst - mean) ** 2, zero).sum() / cnt
     std = torch.sqrt(var).clamp(min=1e-6)
+    if app is not None:
+        pen = _appearance_penalty_d22(
+            cfg.appearance_gain_px if app_gain is None else app_gain, app)
+        dst = dst + torch.where(eye, zero, pen.reshape(V * P, V * P))
     sim2d = _masked_sigmoid_similarity(dst, valid2, mean, std, cfg.affinity_sigmoid_scale)
 
     sim = torch.zeros((N, N), dtype=kps.dtype, device=dev)
@@ -452,15 +547,15 @@ def _gather_obs(kps: Tensor, matched_pose: Tensor, exists: Tensor) -> Tuple[Tens
     return obs * w[:, :, None, None], w
 
 
-def _top_views(obs: Tensor, w: Tensor, P: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor]:
+def _top_views(obs: Tensor, w: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor]:
     """Each slot's k highest-score views (summed keypoint scores plus the
     view weight; unmatched views score 0, the sum in `WORK_DTYPE`), stable
-    in view order: obs (T, k, K, 3), weights (T, k) and per-slot projections
-    (T, k, 3, 4)."""
+    in view order: obs (T, k, K, 3), weights (T, k) and the view indices
+    (T, k) that pick each slot's cameras."""
     score = obs[..., 2].to(WORK_DTYPE).sum(dim=-1) + w            # (T, V)
     idx = torch.argsort(-score, dim=1, stable=True)[:, :k]
     obs_k = torch.gather(obs, 1, idx[:, :, None, None].expand(-1, -1, *obs.shape[2:]))
-    return obs_k, torch.gather(w, 1, idx), P[idx]
+    return obs_k, torch.gather(w, 1, idx), idx
 
 
 class Association(NamedTuple):
@@ -481,16 +576,19 @@ def predict(state: TrackerState) -> TrackerState:
 
 
 def associate(ctx: TrackerContext, state: TrackerState, kps: Tensor,
-              det_valid: Tensor) -> Association:
+              det_valid: Tensor, app: Optional[Tensor] = None) -> Association:
     """Steps 2-3: the similarity (spatial-time when any track is alive,
     spatial otherwise, ref:829-835) and its ALS solve; per camera cluster
-    when `cfg.assoc_clusters > 1`."""
+    when `cfg.assoc_clusters > 1`.  `app`: the frame's (V, P, D) detection
+    embeddings when appearance is on."""
     if ctx.cfg.assoc_clusters > 1:
-        return _clustered_association(ctx, state, kps, det_valid)
+        return _clustered_association(ctx, state, kps, det_valid, app)
     cfg = ctx.cfg
     any_alive = (state.active > 0).any()
-    sim_st, ev_st, d23 = _spatial_time_similarity(ctx, state, kps, det_valid)
-    sim_sp, ev_sp = _spatial_similarity(ctx, kps, det_valid)
+    gain = None if app is None else _appearance_gain(cfg, state)
+    sim_st, ev_st, d23 = _spatial_time_similarity(ctx, state, kps, det_valid,
+                                                  app=app, app_gain=gain)
+    sim_sp, ev_sp = _spatial_similarity(ctx, kps, det_valid, app=app, app_gain=gain)
     sim = torch.where(any_alive, sim_st, sim_sp)
     elem_valid = torch.where(any_alive, ev_st, ev_sp)
     als = als_kernel.match_als(
@@ -503,7 +601,7 @@ def associate(ctx: TrackerContext, state: TrackerState, kps: Tensor,
 
 
 def _clustered_association(ctx: TrackerContext, state: TrackerState, kps: Tensor,
-                           det_valid: Tensor) -> Association:
+                           det_valid: Tensor, app: Optional[Tensor] = None) -> Association:
     """Hierarchical association for wide rigs (the JAX package's
     `_clustered_association`, tracker.py:581-790).
 
@@ -532,13 +630,16 @@ def _clustered_association(ctx: TrackerContext, state: TrackerState, kps: Tensor
     ev_sp = torch.cat([torch.zeros(T, dtype=torch.bool, device=dev), dv_flat])
     elem_valid = torch.where(any_alive, ev_st, ev_sp)
     d23 = _track_det_distances(ctx, state, kps, det_valid).to(kps.dtype)
+    gain = None if app is None else _appearance_gain(cfg, state)
 
     subs = []
     for cl in ctx.clusters:
         sim_st, _, _ = _spatial_time_similarity(ctx, state, kps, det_valid,
-                                                view_idx=cl.views, view_valid=cl.view_valid)
+                                                view_idx=cl.views, view_valid=cl.view_valid,
+                                                app=app, app_gain=gain)
         sim_sp, _ = _spatial_similarity(ctx, kps, det_valid,
-                                        view_idx=cl.views, view_valid=cl.view_valid)
+                                        view_idx=cl.views, view_valid=cl.view_valid,
+                                        app=app, app_gain=gain)
         subs.append(torch.where(any_alive, sim_st, sim_sp))
     als = als_kernel.match_als_batched(
         torch.stack(subs), ctx.cluster_diag_mask, ctx.cluster_init_A,
@@ -593,9 +694,97 @@ def _clustered_association(ctx: TrackerContext, state: TrackerState, kps: Tensor
                        elem_valid=elem_valid, d23=d23, any_alive=any_alive)
 
 
+def _appearance_ema(cfg: PipelineConfig, state: TrackerState, app: Tensor,
+                    m_match: Tensor, m_exists: Tensor, update_mask: Tensor,
+                    spawned: Tensor, active_after_miss: Tensor,
+                    new_root: Tensor) -> Tuple[Tensor, Tensor]:
+    """Step 7c (tracker.py:1184-1234 of the JAX package): the mean embedding
+    of each slot's matched detections this frame, folded into the track's
+    unit EMA (`cfg.appearance_beta`); a spawn starts from its own
+    detections (or from zero without any).  With
+    `cfg.appearance_freeze_radius_m` a track that has another live track
+    that close keeps its EMA.  Returns the new EMA and the frame's raw unit
+    observation per touched slot (`FrameOutput.app_obs`), formed in
+    `WORK_DTYPE` and rounded once."""
+    wd, eps = WORK_DTYPE, 1e-6
+    T, V = m_match.shape
+    views = torch.arange(V, device=app.device)[None, :]
+    app_det = app.to(wd)[views, m_match.clamp(min=0).long()]           # (T, V, D)
+    wv = (m_exists & (torch.linalg.vector_norm(app_det, dim=-1) > eps)).to(wd)
+    n_obs = wv.sum(dim=1)
+    mean_app = (app_det * wv[..., None]).sum(dim=1) / n_obs.clamp(min=1.0)[:, None]
+    has_obs = n_obs > 0
+    ema = state.app_ema.to(wd)
+    b = cfg.appearance_beta
+    blended = torch.where((torch.linalg.vector_norm(ema, dim=-1) > eps)[:, None],
+                          b * mean_app + (1.0 - b) * ema, mean_app)
+    cand = torch.where(spawned[:, None], mean_app, blended)
+    cand = cand / torch.linalg.vector_norm(cand, dim=-1, keepdim=True).clamp(min=eps)
+    upd = update_mask
+    if cfg.appearance_freeze_radius_m > 0:
+        # while another live track is close, keep the last unambiguous
+        # signature instead of blending in detections the association may
+        # be misattributing
+        alive = (active_after_miss > 0) | spawned
+        root = new_root.to(wd)
+        dd = torch.linalg.vector_norm(root[:, None] - root[None], dim=-1)
+        other = alive[:, None] & alive[None] & ~torch.eye(T, dtype=torch.bool,
+                                                          device=app.device)
+        near = torch.where(other, dd, torch.full_like(dd, float("inf"))).amin(dim=1)
+        upd = update_mask & (near >= cfg.appearance_freeze_radius_m)
+    touched = (upd | spawned) & has_obs
+    new_app = torch.where(touched[:, None], cand,
+                          torch.where(spawned[:, None], torch.zeros_like(ema), ema))
+    obs_unit = mean_app / torch.linalg.vector_norm(mean_app, dim=-1,
+                                                   keepdim=True).clamp(min=eps)
+    emit = (update_mask | spawned) & has_obs
+    app_obs = torch.where(emit[:, None], obs_unit, torch.zeros_like(obs_unit))
+    dt = state.app_ema.dtype
+    return new_app.to(dt), app_obs.to(dt)
+
+
+def _appearance_stats(cfg: PipelineConfig, state: TrackerState, app: Tensor,
+                      det_valid: Tensor, m_match: Tensor, m_exists: Tensor,
+                      update_mask: Tensor, spawned: Tensor) -> Tensor:
+    """Step 7d (tracker.py:1236-1290 of the JAX package): this frame's
+    matched (same-person) and claimed-by-another-track (cross-person)
+    track-vs-detection cosines, folded into the auto-gain statistics the
+    next frame's `_appearance_gain` reads.  The first frame with both kinds
+    of sample sets them, later ones fold at `cfg.appearance_auto_beta`; the
+    weight ramps 0 -> 1 on such frames only.  Formed in `WORK_DTYPE`,
+    rounded once."""
+    P = app.shape[1]
+    cos, has = _cosines(state.app_ema, app, "td,vpd->tvp")               # (T, V, P)
+    has = has & det_valid[None]
+    matched = m_exists[:, :, None] & (torch.arange(P, device=app.device)[None, None, :]
+                                      == m_match.clamp(min=0)[:, :, None])
+    claimed = matched.any(dim=0)                                          # (V, P)
+    same_m = has & matched & (update_mask & ~spawned)[:, None, None]
+    diff_m = has & ~matched & claimed[None] & ((state.active > 0) & ~spawned)[:, None, None]
+    n_s, n_d = same_m.sum(), diff_m.sum()
+    zero = torch.zeros_like(cos)
+    mean_s = torch.where(same_m, cos, zero).sum() / n_s.clamp(min=1)
+    mean_d = torch.where(diff_m, cos, zero).sum() / n_d.clamp(min=1)
+    cs, cd, w, vs = state.app_stats.to(WORK_DTYPE).unbind()
+    # the matched cosines' spread around the running mean: the appearance
+    # noise the penalty amplifies (the noise rule of `_appearance_gain`)
+    ref_s = torch.where(w > 0, cs, mean_s)
+    var_s = torch.where(same_m, (cos - ref_s) ** 2, zero).sum() / n_s.clamp(min=1)
+    b = cfg.appearance_auto_beta
+    have_both = (n_s > 0) & (n_d > 0)
+
+    def fold(old, new):
+        return torch.where(have_both, torch.where(w > 0, (1 - b) * old + b * new, new), old)
+
+    new_w = torch.where(have_both, (1.0 - b) * w + b, w)
+    return torch.stack([fold(cs, mean_s), fold(cd, mean_d), new_w,
+                        fold(vs, var_s)]).to(state.app_stats.dtype)
+
+
 def make_update(ctx: TrackerContext):
-    """Build steps 4-8 as `update(state, kps, det_valid, association) ->
-    (state, out)`: groups, track rescue, death, spawn, IK and lifecycle."""
+    """Build steps 4-8 as `update(state, kps, det_valid, association, app)
+    -> (state, out)`: groups, track rescue, death, spawn, IK (or
+    triangulation), the motion and appearance state, and lifecycle."""
     cfg = ctx.cfg
     T, V, P = cfg.max_tracks, cfg.n_views, cfg.max_people
     N = cfg.n_matrix
@@ -613,8 +802,20 @@ def make_update(ctx: TrackerContext):
                  solver=cfg.ik_solver, ftol=cfg.ik_ftol, xtol=cfg.ik_xtol)
     top_k = cfg.ik_max_views if (cfg.ik_max_views is not None
                                  and cfg.ik_max_views < V) else 0
+    wd = WORK_DTYPE
 
-    def update(state: TrackerState, kps: Tensor, det_valid: Tensor, a: Association):
+    def cold_triangulation(obs: Tensor, w: Tensor) -> Tensor:
+        """Triangulated COCO+spine points (T, 18, 4) of each slot's matched
+        detections over all its views, in `WORK_DTYPE`, kept finite and
+        inside +-100 m (a degenerate 2-view match can triangulate near
+        infinity)."""
+        obs18 = ik_ops.add_mid_spine(obs).to(wd)
+        tri = triangulate_points(ctx.cams.P.to(wd), ctx.K_inv.to(wd), obs18, w > 0,
+                                 cfg.triangulate_min_score, cfg.triangulate_refine_iters)
+        return torch.nan_to_num(tri).clamp(-100.0, 100.0)
+
+    def update(state: TrackerState, kps: Tensor, det_valid: Tensor, a: Association,
+               app: Optional[Tensor] = None):
         tsu = state.time_since_update
         d23, any_alive = a.d23, a.any_alive
         groups = assoc.extract_groups(a.x_bin, a.elem_valid)
@@ -655,6 +856,11 @@ def make_update(ctx: TrackerContext):
                 group_size[T:] >= 2,
                 torch.full((N - T,), cfg.track_rescue_px, dtype=kps.dtype, device=dev),
                 torch.full((N - T,), single_px, dtype=kps.dtype, device=dev))
+            if app is not None:
+                # appearance-consistent rescue: the same px-per-cosine
+                # penalty pushes another person's detections past the gate
+                d23 = (d23.to(wd) + _appearance_penalty(
+                    _appearance_gain(cfg, state), state.app_ema, app)).to(d23.dtype)
             d23f = d23.reshape(T, V * P)
             inf = torch.full_like(d23f, float("inf"))
             dflat = torch.where(adoptable[None] & torch.isfinite(d23f)
@@ -732,65 +938,102 @@ def make_update(ctx: TrackerContext):
                               s_match_all[(slot_leader - T).clamp(min=0).long()], minus1)
         s_exists = spawned[:, None] & (s_match >= 0)
 
-        # 7. batched IK
+        # 7. batched IK, or triangulation
         upd_obs, upd_w = _gather_obs(kps, t_match, t_exists)
         upd_w = upd_w * update_mask[:, None].to(upd_w.dtype)
         new_obs, new_w = _gather_obs(kps, s_match, s_exists)
         new_w = new_w * spawned[:, None].to(new_w.dtype)
         any_update, any_spawn = torch.stack([update_mask.any(), spawned.any()]).tolist()
         if top_k:
-            # wide rigs: each track's LM solve sees only its k highest-score
-            # matched views, with per-slot projections; the spawn
-            # triangulation below keeps all views
-            upd_obs_ik, upd_w_ik, P_upd = _top_views(upd_obs, upd_w, ctx.cams.P, top_k)
-            new_obs_ik, new_w_ik, P_new = _top_views(new_obs, new_w, ctx.cams.P, top_k)
+            # wide rigs: each track's LM solve (or refined triangulation)
+            # sees only its k highest-score matched views, with per-slot
+            # cameras; the spawns' triangulation keeps all views
+            upd_obs_k, upd_w_k, upd_views = _top_views(upd_obs, upd_w, top_k)
+            new_obs_k, new_w_k, new_views = _top_views(new_obs, new_w, top_k)
+            P_upd, P_new = ctx.cams.P[upd_views], ctx.cams.P[new_views]
+            # only the refined triangulation reads the inverse intrinsics
+            Kinv_upd = None if ctx.use_ik else ctx.K_inv[upd_views]
         else:
-            upd_obs_ik, upd_w_ik, P_upd = upd_obs, upd_w, ctx.cams.P
-            new_obs_ik, new_w_ik, P_new = new_obs, new_w, ctx.cams.P
-
-        state_params = ik_ops.IkParams(state.root, state.euler, state.side_lens)
-        if any_update:
-            warm_params, warm_joints = ik_ops.solve_two_stage(
-                state_params, skel, upd_obs_ik, upd_w_ik, P_upd,
-                n_iters=cfg.ik_warm_iters, stages=cfg.ik_warm_stages, **lm_kw)
-        else:
-            warm_params, warm_joints = state_params, state.pose3d
-        if any_spawn:
-            # cold init: triangulate COCO+spine observations, root = hip
-            # midpoint (ref:src/inverse_kinematics.py:389-397), geometric
-            # angle init
-            # (both in WORK_DTYPE, rounded once)
-            wd = WORK_DTYPE
-            obs18 = ik_ops.add_mid_spine(new_obs).to(wd)
-            tri = triangulate_points(ctx.cams.P.to(wd), ctx.K_inv.to(wd), obs18, new_w > 0,
-                                     cfg.triangulate_min_score,
-                                     cfg.triangulate_refine_iters)   # (T, 18, 4)
-            # degenerate 2-view matches can triangulate near infinity
-            tri = torch.nan_to_num(tri).clamp(-100.0, 100.0)
-            cold_roots = (0.5 * (tri[:, _LHIP, :3] + tri[:, _RHIP, :3])).to(kps.dtype)
-            cold_euler = ik_ops.geometric_init(tri, skel.to(wd)).to(kps.dtype)
-            init = ik_ops.IkParams(root=cold_roots, euler=cold_euler,
-                                   side_lens=skel.side_bone_lens.expand(T, -1))
-            cold_params, cold_joints = ik_ops.solve_two_stage(
-                init, skel, new_obs_ik, new_w_ik, P_new,
-                n_iters=cfg.ik_cold_iters, stages=cfg.ik_cold_stages, **lm_kw)
-        else:
-            cold_params, cold_joints = state_params, state.pose3d
-
-        sel_u = update_mask
-        sel_s = spawned
+            upd_obs_k, upd_w_k, P_upd, Kinv_upd = upd_obs, upd_w, ctx.cams.P, ctx.K_inv
+            new_obs_k, new_w_k, P_new = new_obs, new_w, ctx.cams.P
+        sel_u, sel_s = update_mask, spawned
 
         def pick(cold, warm, old):
             shape = (T,) + (1,) * (old.dim() - 1)
             return torch.where(sel_s.view(shape), cold,
                                torch.where(sel_u.view(shape), warm, old))
 
-        new_root = pick(cold_params.root, warm_params.root, state.root)
-        new_euler = pick(cold_params.euler, warm_params.euler, state.euler)
-        new_side = pick(cold_params.side_lens, warm_params.side_lens, state.side_lens)
-        new_pose3d = pick(cold_joints, warm_joints, state.pose3d)
-        new_score = torch.where((sel_s | sel_u)[:, None],
-                                torch.ones_like(state.pose3d_score), state.pose3d_score)
+        if ctx.use_ik:
+            state_params = ik_ops.IkParams(state.root, state.euler, state.side_lens)
+            if any_update:
+                warm_params, warm_joints = ik_ops.solve_two_stage(
+                    state_params, skel, upd_obs_k, upd_w_k, P_upd,
+                    n_iters=cfg.ik_warm_iters, stages=cfg.ik_warm_stages, **lm_kw)
+            else:
+                warm_params, warm_joints = state_params, state.pose3d
+            if any_spawn:
+                # cold init: root = hip midpoint of the triangulation
+                # (ref:src/inverse_kinematics.py:389-397), geometric angle
+                # init (both in WORK_DTYPE, rounded once)
+                tri = cold_triangulation(new_obs, new_w)
+                cold_roots = (0.5 * (tri[:, _LHIP, :3] + tri[:, _RHIP, :3])).to(kps.dtype)
+                cold_euler = ik_ops.geometric_init(tri, skel.to(wd)).to(kps.dtype)
+                init = ik_ops.IkParams(root=cold_roots, euler=cold_euler,
+                                       side_lens=skel.side_bone_lens.expand(T, -1))
+                cold_params, cold_joints = ik_ops.solve_two_stage(
+                    init, skel, new_obs_k, new_w_k, P_new,
+                    n_iters=cfg.ik_cold_iters, stages=cfg.ik_cold_stages, **lm_kw)
+            else:
+                cold_params, cold_joints = state_params, state.pose3d
+            new_root = pick(cold_params.root, warm_params.root, state.root)
+            new_euler = pick(cold_params.euler, warm_params.euler, state.euler)
+            new_side = pick(cold_params.side_lens, warm_params.side_lens, state.side_lens)
+            new_pose3d = pick(cold_joints, warm_joints, state.pose3d)
+            new_score = torch.where((sel_s | sel_u)[:, None],
+                                    torch.ones_like(state.pose3d_score), state.pose3d_score)
+        else:
+            # triangulation mode (tracker.py:1141-1168 of the JAX package):
+            # updates triangulate their capped views, spawns all their views;
+            # the pose is COCO order plus the mid-spine, the root the hips'
+            # midpoint, angles and side lengths stay
+            keep = torch.cat([state.pose3d, state.pose3d_score[..., None]], dim=-1)
+            tri_upd = tri_new = keep
+            if any_update:
+                tri_upd = triangulate_points(
+                    P_upd.to(wd), Kinv_upd.to(wd), ik_ops.add_mid_spine(upd_obs_k).to(wd),
+                    upd_w_k > 0, cfg.triangulate_min_score,
+                    cfg.triangulate_refine_iters).to(kps.dtype)
+            if any_spawn:
+                tri_new = cold_triangulation(new_obs, new_w).to(kps.dtype)
+            tri = pick(tri_new, tri_upd, keep)
+            new_pose3d, new_score = tri[..., :3], tri[..., 3]
+            new_root = torch.where((sel_s | sel_u)[:, None],
+                                   0.5 * (new_pose3d[:, _LHIP] + new_pose3d[:, _RHIP]),
+                                   state.root)
+            new_euler, new_side = state.euler, state.side_lens
+
+        # 7b. association-gate velocity (cfg.motion_gain): EMA of the
+        # per-update root delta; fresh spawns start at rest
+        new_vel = state.root_vel
+        if cfg.motion_gain:
+            dt = tsu.clamp(min=1).to(wd)
+            dx = (new_root.to(wd) - state.root.to(wd)) / dt[:, None]
+            b = cfg.motion_vel_beta
+            ema = (b * dx + (1.0 - b) * state.root_vel.to(wd)).to(state.root_vel.dtype)
+            new_vel = torch.where(spawned[:, None], torch.zeros_like(ema),
+                                  torch.where(update_mask[:, None], ema, state.root_vel))
+
+        m_match = torch.where(spawned[:, None], s_match, t_match)      # (T, V)
+        new_app, new_app_stats = state.app_ema, state.app_stats
+        app_obs = state.app_ema.new_zeros((T, 0))
+        if app is not None:
+            m_exists = torch.where(spawned[:, None], s_exists, t_exists)
+            new_app, app_obs = _appearance_ema(cfg, state, app, m_match, m_exists,
+                                               update_mask, spawned, active_after_miss,
+                                               new_root)
+            if cfg.appearance_auto_target_px > 0:
+                new_app_stats = _appearance_stats(cfg, state, app, det_valid, m_match,
+                                                  m_exists, update_mask, spawned)
 
         # 8. lifecycle bookkeeping
         touched = update_mask | spawned
@@ -814,8 +1057,8 @@ def make_update(ctx: TrackerContext):
             hits=new_hits.to(i32), time_since_update=new_tsu.to(i32),
             root=new_root, euler=new_euler, side_lens=new_side,
             pose3d=new_pose3d, pose3d_score=new_score,
-            root_vel=state.root_vel, app_ema=state.app_ema,
-            app_stats=state.app_stats, next_track_id=next_tid.to(i32),
+            root_vel=new_vel, app_ema=new_app,
+            app_stats=new_app_stats, next_track_id=next_tid.to(i32),
         )
         out = FrameOutput(
             track_id=new_state.track_id, active=new_state.active,
@@ -823,8 +1066,8 @@ def make_update(ctx: TrackerContext):
             died_track_id=died_track_id.to(i32),
             root=new_root, euler=new_euler, side_lens=new_side,
             pose3d=new_pose3d, pose3d_score=new_score,
-            matched_pose=torch.where(spawned[:, None], s_match, t_match).to(i32),
-            app_obs=state.app_ema.new_zeros((T, 0)),
+            matched_pose=m_match.to(i32),
+            app_obs=app_obs,
             als_iters=a.n_iters,
         )
         return new_state, out
@@ -833,13 +1076,21 @@ def make_update(ctx: TrackerContext):
 
 
 def make_step(ctx: TrackerContext):
-    """Build the per-frame step: `step(state, kps, det_valid) -> (state, out)`
-    with kps (V, P, K, 3) and det_valid (V, P) on the context's device."""
+    """Build the per-frame step: `step(state, kps, det_valid, app=None) ->
+    (state, out)` with kps (V, P, K, 3), det_valid (V, P) and, when
+    `cfg.appearance_dim > 0`, app (V, P, D) detection embeddings (unit rows,
+    zero rows for detections without one), all on the context's device."""
     update = make_update(ctx)
+    use_app = ctx.cfg.appearance_dim > 0
 
-    def step(state: TrackerState, kps: Tensor, det_valid: Tensor):
+    def step(state: TrackerState, kps: Tensor, det_valid: Tensor,
+             app: Optional[Tensor] = None):
+        if use_app and app is None:
+            raise ValueError("cfg.appearance_dim > 0: each frame needs app=(V, P, D) "
+                             "detection appearance embeddings")
+        app = app if use_app else None
         state = predict(state)
-        return update(state, kps, det_valid, associate(ctx, state, kps, det_valid))
+        return update(state, kps, det_valid, associate(ctx, state, kps, det_valid, app), app)
 
     return step
 
@@ -857,25 +1108,103 @@ def outputs_to_numpy(out: FrameOutput) -> FrameOutput:
     return FrameOutput(*[t.cpu().numpy() for t in out])
 
 
-def run_offline(ctx: TrackerContext, kps, valid,
-                state: Optional[TrackerState] = None) -> Tuple[TrackerState, FrameOutput]:
-    """Whole-sequence tracking: one step per frame, from `state` (zeros by
-    default), on the context's device.  kps: (F, V, P, K, 3); valid:
-    (F, V, P), numpy or tensors.  Returns the last state and the stacked
-    per-frame outputs (F, ...) on the device."""
+def _frames_to_device(ctx: TrackerContext, kps, valid, app):
+    """kps, valid and app (when given and appearance is on) as f32 / bool
+    tensors on the context's device."""
     dev = ctx.device
     kps = torch.as_tensor(kps, dtype=torch.float32, device=dev)
     valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
+    if app is not None and ctx.cfg.appearance_dim > 0:
+        app = torch.as_tensor(app, dtype=torch.float32, device=dev)
+    else:
+        app = None
+    return kps, valid, app
+
+
+def run_offline(ctx: TrackerContext, kps, valid, state: Optional[TrackerState] = None,
+                app=None) -> Tuple[TrackerState, FrameOutput]:
+    """Whole-sequence tracking: one step per frame, from `state` (zeros by
+    default), on the context's device.  kps: (F, V, P, K, 3); valid:
+    (F, V, P); app: (F, V, P, D) detection embeddings, needed when
+    `cfg.appearance_dim > 0`; numpy or tensors.  Returns the last state and
+    the stacked per-frame outputs (F, ...) on the device."""
+    kps, valid, app = _frames_to_device(ctx, kps, valid, app)
     if state is None:
-        state = TrackerState.zeros(ctx.cfg, device=dev)
+        state = TrackerState.zeros(ctx.cfg, device=ctx.device)
     step = make_step(ctx)
     outs = []
     for f in range(kps.shape[0]):
-        state, out = step(state, kps[f], valid[f])
+        state, out = step(state, kps[f], valid[f], None if app is None else app[f])
         outs.append(out)
     if not outs:
         raise ValueError("run_offline needs at least one frame")
     return state, stack_outputs(outs)
+
+
+class MvTracker:
+    """Streaming-mode tracker (the JAX package's `MvTracker`,
+    tracker.py:1366-1487): a host loop around the per-frame step, one frame
+    (`update`) or one chunk of frames (`update_batch`) at a time.  The
+    outputs are numpy `FrameOutput`s, equal bit for bit to `run_offline`'s
+    frames over the same sequence; `tracklets()` assembles them.  Runs on
+    `device` ("cuda" unless the caller asks for "cpu")."""
+
+    def __init__(self, cams: CameraBank, cfg: Optional[PipelineConfig] = None,
+                 use_ik: bool = True, device="cuda"):
+        self.cfg = cfg or PipelineConfig(n_views=cams.n_views)
+        self.ctx = TrackerContext.build(cams, self.cfg, use_ik=use_ik, device=device)
+        self._step = make_step(self.ctx)
+        self.state = TrackerState.zeros(self.cfg, device=self.ctx.device)
+        self.outputs: List[FrameOutput] = []
+        self.frame_idxs: List[int] = []
+
+    def update(self, frame_idx: int, kps, valid, app=None) -> FrameOutput:
+        """Track one frame: kps (V, P, K, 3), valid (V, P), app (V, P, D)
+        when `cfg.appearance_dim > 0`.  Returns its output on the host."""
+        kps, valid, app = _frames_to_device(self.ctx, kps, valid, app)
+        self.state, out = self._step(self.state, kps, valid, app)
+        self.outputs.append(outputs_to_numpy(out))
+        self.frame_idxs.append(int(frame_idx))
+        return self.outputs[-1]
+
+    def update_batch(self, frame_idxs, kps, valid, pad_to: Optional[int] = None,
+                     app=None) -> List[FrameOutput]:
+        """Track a chunk of k frames: kps (k, V, P, K, 3), valid (k, V, P),
+        app (k, V, P, D) when `cfg.appearance_dim > 0`.  The outputs come to
+        the host once for the chunk; they equal k `update` calls.
+
+        `pad_to` is the serving path's steady chunk size.  The JAX package
+        compiles one scan of that length and pads a shorter chunk (the
+        sequence's tail) with inert frames that leave the state untouched
+        and whose outputs it drops; a host loop has nothing to compile, so
+        here a shorter chunk runs its real frames only, with the same
+        result.  A chunk longer than `pad_to` raises, as there."""
+        k = len(frame_idxs)
+        if kps.shape[0] != k or valid.shape[0] != k:
+            raise ValueError(f"{k} frame indices, kps for {kps.shape[0]} frames and "
+                             f"valid for {valid.shape[0]}")
+        if pad_to is not None and k > pad_to:
+            raise ValueError(f"chunk of {k} frames exceeds pad_to={pad_to}")
+        kps, valid, app = _frames_to_device(self.ctx, kps, valid, app)
+        outs = []
+        for i in range(k):
+            self.state, out = self._step(self.state, kps[i], valid[i],
+                                         None if app is None else app[i])
+            outs.append(out)
+        if not outs:
+            return []
+        stacked = outputs_to_numpy(stack_outputs(outs))
+        per_frame = [FrameOutput(*[a[i] for a in stacked]) for i in range(k)]
+        self.outputs.extend(per_frame)
+        self.frame_idxs.extend(int(f) for f in frame_idxs)
+        return per_frame
+
+    def tracklets(self) -> List["Tracklet"]:
+        if not self.outputs:
+            return []
+        stacked = FrameOutput(*[np.stack([getattr(o, f) for o in self.outputs])
+                                for f in FrameOutput._fields])
+        return assemble_tracklets(stacked, self.frame_idxs)
 
 
 @dataclasses.dataclass

@@ -4,6 +4,9 @@
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py [--frames 300] [--draws 12]
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study wide [--frames 60]
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study cold [--draws 2]
+    JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study default [--frames 300]
+    JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study appearance [--frames 200]
+    python scripts/torch_parity_study.py --study steps [--scene appearance] [--frames 20]
 
 The default study runs the synthetic scene of the port's smoke test
 (synthetic_sequence(300 frames, 4 people, 5 views, seed 0), SHELF_BENCH)
@@ -63,7 +66,44 @@ solvers on those identical inputs, and for `--draws` random +-1e-7 steps of
 the initial angles, how far each package's solution moves (largest joint
 shift, m).
 
-It is a study script of the port, not part of it: it imports both packages.
+`--study default` runs the smoke test's `default` scene (the scene above
+under `PipelineConfig(n_views=5)`, the JAX package's default preset: the
+per-slot Cholesky LM, ALS capped at 1,000 iterations); `--study appearance`
+the `appearance` scene (scripts/identity_study.py's
+10cam_x_10ppl_f200_appearance_extractorgrade_auto8: 10 views, 10 people,
+200 frames, `synthetic_appearance(noise=0.05, shared_frac=0.83)` with the
+auto gain).  Each prints:
+
+- "<study>_reference": the JAX package's tracklets, top lengths, mean /
+  median reprojection and degenerate poses (its `pipeline.run` tracklets:
+  the filter, one `run_offline`, the ghost filter), the frames whose ALS
+  ran into its cap; for `default` the same in triangulation mode
+  (`use_ik=False`, measured on the 17 COCO joints), for `appearance` the
+  final auto-gain statistics (`app_stats`);
+- "<study>_sequence": the port's run on the CPU over the same frames: the
+  same numbers, the first frame whose decisions differ from the JAX run's,
+  both runs' ALS iterations there, and that frame's ALS problem from the
+  JAX run's state, solved by the JAX `match_als` and the port's plain
+  version on each package's W (iterations, binarized entries that differ,
+  the smallest |X - 0.5| over the valid entries).
+
+`--study steps` holds the port on the card against the port on the CPU, on
+the `default` or `appearance` scene (`--scene`), frame by frame from one
+state: it steps the scene on the CPU and carries the CPU's state to the card
+before every frame.  One "steps" line a frame: the ALS input W that
+`tracker.associate` forms on each device from that state (entries that
+differ and by how much), the appearance penalties' largest difference, the
+ALS iterations of the kernel on the card's W, of the plain version on the
+card's W and of the CPU's association, the binarized entries where kernel
+and plain differ on the same W; then how many entries of each float field
+of the new state differ after the whole step on both devices.  Where every
+W is equal, a card-vs-CPU difference of a whole run (`chip_smoke.py`'s
+parity phases) enters through the state, not the association.  It needs an
+NVIDIA GPU and not JAX.
+
+The scenes' constants are `chip_smoke.py`'s.  It is a study script of the
+port, not part of it: it imports both packages (`--study steps` only the
+port).
 """
 from __future__ import annotations
 
@@ -75,26 +115,32 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import jax  # noqa: E402
-import jax.numpy as jnp
-import numpy as np
-import torch
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
-from multiview_motion_capture_torch import eval as t_eval
-from multiview_motion_capture_torch import pipeline as t_pipeline
-from multiview_motion_capture_torch import tracker as t_tracker
-from multiview_motion_capture_torch.config import SHELF_BENCH as T_SHELF_BENCH
-from multiview_motion_capture_torch.data.ingest import filter_bad_poses as t_filter
-from multiview_motion_capture_torch.data.synthetic import synthetic_sequence as t_synth
-from multiview_motion_capture_torch.ops import association as t_assoc
-from multiview_motion_capture_tpu import eval as j_eval
-from multiview_motion_capture_tpu import pipeline as j_pipeline
-from multiview_motion_capture_tpu import tracker as j_tracker
-from multiview_motion_capture_tpu.config import SHELF_BENCH as J_SHELF_BENCH
-from multiview_motion_capture_tpu.data.ingest import filter_bad_poses as j_filter
-from multiview_motion_capture_tpu.data.synthetic import synthetic_sequence as j_synth
-from multiview_motion_capture_tpu.ops import als_pallas
-from multiview_motion_capture_tpu.ops import association as j_assoc
+import chip_smoke  # noqa: E402
+from multiview_motion_capture_torch import eval as t_eval  # noqa: E402
+from multiview_motion_capture_torch import pipeline as t_pipeline  # noqa: E402
+from multiview_motion_capture_torch import tracker as t_tracker  # noqa: E402
+from multiview_motion_capture_torch.config import SHELF_BENCH as T_SHELF_BENCH  # noqa: E402
+from multiview_motion_capture_torch.data.ingest import filter_bad_poses as t_filter  # noqa: E402
+from multiview_motion_capture_torch.data.synthetic import synthetic_sequence as t_synth  # noqa: E402
+from multiview_motion_capture_torch.ops import association as t_assoc  # noqa: E402
+
+try:    # every study but `steps` (which runs where there is a GPU and no JAX)
+    import jax
+    import jax.numpy as jnp
+
+    from multiview_motion_capture_tpu import eval as j_eval
+    from multiview_motion_capture_tpu import pipeline as j_pipeline
+    from multiview_motion_capture_tpu import tracker as j_tracker
+    from multiview_motion_capture_tpu.config import SHELF_BENCH as J_SHELF_BENCH
+    from multiview_motion_capture_tpu.data.ingest import filter_bad_poses as j_filter
+    from multiview_motion_capture_tpu.data.synthetic import synthetic_sequence as j_synth
+    from multiview_motion_capture_tpu.ops import als_pallas
+    from multiview_motion_capture_tpu.ops import association as j_assoc
+except ImportError:
+    jax = None
 
 DECISIONS = ("track_id", "active", "updated", "spawned", "died_track_id", "matched_pose")
 
@@ -239,18 +285,44 @@ def _quality(tracklets, seq, ev) -> dict:
             "n_degenerate_poses": m.n_degenerate_poses}
 
 
+def _als_margins(Wj, Wt, ev, mask, init, kw) -> dict:
+    """One ALS problem solved by the JAX `match_als` on JAX's W and by the
+    port's plain version on the port's W: iterations, binarized entries
+    that differ among the valid ones, and the binarization margins."""
+    ev = np.asarray(ev)
+    valid2 = ev[:, None] & ev[None, :] & ~np.eye(len(ev), dtype=bool)
+    rj = j_assoc.match_als(Wj, jnp.asarray(mask), jnp.asarray(init), **kw)
+    rt = t_assoc.match_als(Wt, torch.as_tensor(mask), torch.as_tensor(init), **kw)
+    xj, xt = np.asarray(rj.x), rt.x.numpy()
+    flips = (np.asarray(rj.x_bin) != rt.x_bin.numpy()) & valid2
+    return {"w_max_abs_diff": float(np.abs(np.asarray(Wj) - Wt.numpy()).max()),
+            "iters_jax": int(rj.n_iters), "iters_port": int(rt.n_iters),
+            "x_bin_entries_differing": int(flips.sum() // 2),
+            "min_margin_jax": float(np.abs(xj - 0.5)[valid2].min()),
+            "min_margin_port": float(np.abs(xt - 0.5)[valid2].min()),
+            "flipped_min_dist_from_half_jax": (float(np.abs(xj - 0.5)[flips].min())
+                                               if flips.any() else None),
+            "flipped_min_dist_from_half_port": (float(np.abs(xt - 0.5)[flips].min())
+                                                if flips.any() else None)}
+
+
+def _als_kw(cfg) -> dict:
+    return dict(alpha=cfg.als_alpha, beta=cfg.als_beta, mu0=cfg.als_mu, tol=cfg.als_tol,
+                max_iter=cfg.als_max_iter, stable_iters=cfg.als_stable_iters)
+
+
+def _carry(jstate):
+    return t_tracker.from_numpy_state(
+        {k: np.asarray(getattr(jstate, k)) for k in t_tracker.TrackerState.__dataclass_fields__},
+        device="cpu")
+
+
 def _cluster_margins(jctx, tctx, jstate, kps, valid, cfg) -> list:
     """Each cluster's ALS problem at one frame, from the same state: the JAX
     `match_als` (f32) and the port's plain version on each package's own W."""
-    kw = dict(alpha=cfg.als_alpha, beta=cfg.als_beta, mu0=cfg.als_mu, tol=cfg.als_tol,
-              max_iter=cfg.als_max_iter, stable_iters=cfg.als_stable_iters)
-    tstate = t_tracker.from_numpy_state(
-        {k: np.asarray(getattr(jstate, k)) for k in t_tracker.TrackerState.__dataclass_fields__},
-        device="cpu")
+    tstate = _carry(jstate)
     alive = bool(np.asarray(jstate.active).max() > 0)
     out = []
-    mask = np.asarray(jctx.cluster_diag_mask)
-    init = np.asarray(jctx.cluster_init_A)
     for c, cl in enumerate(tctx.clusters):
         views = cl.views.numpy()
         vv = None if cl.view_valid is None else cl.view_valid.numpy()
@@ -265,22 +337,119 @@ def _cluster_margins(jctx, tctx, jstate, kps, valid, cfg) -> list:
             Wj, evj = j_tracker._spatial_similarity(jctx, jk, jv, view_idx=views, view_valid=vv)
             Wt, _ = t_tracker._spatial_similarity(tctx, tk, tv, view_idx=cl.views,
                                                  view_valid=cl.view_valid)
-        ev = np.asarray(evj)
-        valid2 = ev[:, None] & ev[None, :] & ~np.eye(len(ev), dtype=bool)
-        rj = j_assoc.match_als(Wj, jnp.asarray(mask), jnp.asarray(init), **kw)
-        rt = t_assoc.match_als(Wt, torch.as_tensor(mask), torch.as_tensor(init), **kw)
-        xj, xt = np.asarray(rj.x), rt.x.numpy()
-        flips = (np.asarray(rj.x_bin) != rt.x_bin.numpy()) & valid2
-        out.append({"cluster": c, "w_max_abs_diff": float(np.abs(np.asarray(Wj) - Wt.numpy()).max()),
-                    "iters_jax": int(rj.n_iters), "iters_port": int(rt.n_iters),
-                    "x_bin_entries_differing": int(flips.sum() // 2),
-                    "min_margin_jax": float(np.abs(xj - 0.5)[valid2].min()),
-                    "min_margin_port": float(np.abs(xt - 0.5)[valid2].min()),
-                    "flipped_min_dist_from_half_jax": (float(np.abs(xj - 0.5)[flips].min())
-                                                       if flips.any() else None),
-                    "flipped_min_dist_from_half_port": (float(np.abs(xt - 0.5)[flips].min())
-                                                        if flips.any() else None)})
+        out.append({"cluster": c, **_als_margins(Wj, Wt, evj, jctx.cluster_diag_mask,
+                                                 jctx.cluster_init_A, _als_kw(cfg))})
     return out
+
+
+def _single_margins(jctx, tctx, jstate, kps, valid, cfg, app=None) -> dict:
+    """The one ALS problem of a frame (`assoc_clusters=1`), from the same
+    state, with the frame's embeddings when appearance is on."""
+    tstate = _carry(jstate)
+    jk, jv, tk, tv = jnp.asarray(kps), jnp.asarray(valid), torch.as_tensor(kps), \
+        torch.as_tensor(valid)
+    ja = None if app is None else jnp.asarray(app)
+    ta = None if app is None else torch.as_tensor(app)
+    if np.asarray(jstate.active).max() > 0:
+        Wj, evj, _ = j_tracker._spatial_time_similarity(jctx, jstate, jk, jv, app=ja)
+        Wt, _, _ = t_tracker._spatial_time_similarity(tctx, tstate, tk, tv, app=ta)
+    else:
+        Wj, evj = j_tracker._spatial_similarity(
+            jctx, jk, jv, app=ja, app_gain=j_tracker._appearance_gain(cfg, jstate))
+        Wt, _ = t_tracker._spatial_similarity(
+            tctx, tk, tv, app=ta, app_gain=t_tracker._appearance_gain(tctx.cfg, tstate))
+    return _als_margins(Wj, Wt, evj, jctx.diag_mask, jctx.init_A, _als_kw(cfg))
+
+
+def _coco17(tracklets):
+    """Triangulation-mode poses are COCO order plus the mid-spine; the
+    reprojection metric reads an 18-joint pose as BASIC_18, so measure
+    them on their 17 COCO joints."""
+    return [dataclasses.replace(t, poses_3d=np.asarray(t.poses_3d)[:, :17]) for t in tracklets]
+
+
+def _preset(name: str):
+    """The smoke test's `default` or `appearance` scene: the config's
+    fields, synthetic_sequence's arguments (n_frames included) and the
+    embeddings' (None without appearance)."""
+    if name == "default":
+        return chip_smoke.DEFAULT_CFG, chip_smoke.SCENE, None
+    return chip_smoke.APPEARANCE_CFG, chip_smoke.APPEARANCE_SCENE, chip_smoke.APPEARANCE_EMBED
+
+
+def preset_study(name: str, n_frames: int) -> None:
+    from multiview_motion_capture_torch.config import PipelineConfig as TConfig
+    from multiview_motion_capture_torch.data.synthetic import synthetic_appearance as t_app
+    from multiview_motion_capture_tpu.config import PipelineConfig as JConfig
+    from multiview_motion_capture_tpu.data.synthetic import synthetic_appearance as j_app
+
+    over, scene, embed = _preset(name)
+    scene = dict(scene, n_frames=n_frames)
+    jcfg, tcfg = JConfig(**over), TConfig(**over)
+    js, ts = j_synth(cfg=jcfg, **scene), t_synth(cfg=tcfg, **scene)
+    assert np.array_equal(js.batch.kps, ts.batch.kps)
+    japp = tapp = None
+    if embed is not None:
+        japp, tapp = j_app(js, **embed), t_app(ts, **embed)
+        assert np.array_equal(japp, tapp)
+    jb, tb = j_filter(js.batch, jcfg), t_filter(ts.batch, tcfg)
+    cap = tcfg.als_max_iter
+
+    def j_run(use_ik=True):
+        ctx = j_tracker.TrackerContext.build(js.cameras, jcfg, use_ik=use_ik)
+        st, o = j_tracker.run_offline(ctx, jnp.asarray(jb.kps), jnp.asarray(jb.valid),
+                                      app=None if japp is None else jnp.asarray(japp))
+        o = jax.device_get(o)
+        tl = j_pipeline.filter_ghost_tracklets(j_tracker.assemble_tracklets(o),
+                                               jcfg.min_track_length)
+        return ctx, jax.device_get(st), o, tl
+
+    def t_run(use_ik=True):
+        ctx = t_tracker.TrackerContext.build(ts.cameras, tcfg, use_ik=use_ik, device="cpu")
+        st, o = t_tracker.run_offline(ctx, tb.kps, tb.valid, app=tapp)
+        o = t_tracker.outputs_to_numpy(o)
+        tl = t_pipeline.filter_ghost_tracklets(t_tracker.assemble_tracklets(o),
+                                               tcfg.min_track_length)
+        return ctx, st, o, tl
+
+    jctx, jst, jo, jtl = j_run()
+    ref = {"study": f"{name}_reference", "frames": n_frames, **_quality(jtl, js, j_eval),
+           "als_iters_at_cap_frames": int((np.asarray(jo.als_iters) >= cap).sum()),
+           "als_iters_mean": float(np.asarray(jo.als_iters).mean())}
+    if name == "default":
+        _, _, _, jtl_tri = j_run(use_ik=False)
+        ref["no_ik"] = _quality(_coco17(jtl_tri), js, j_eval)
+    else:
+        ref["app_stats"] = np.asarray(jst.app_stats).tolist()
+    emit(ref)
+
+    tctx, tst, to, ttl = t_run()
+    j_dig, t_dig = t_eval.decision_digests(jo), t_eval.decision_digests(to)
+    first = next((f for f in range(n_frames) if j_dig[f] != t_dig[f]), None)
+    out = {"study": f"{name}_sequence", "frames": n_frames, **_quality(ttl, ts, t_eval),
+           "als_iters_at_cap_frames": int((to.als_iters >= cap).sum()),
+           "als_iters_mean": float(to.als_iters.mean()),
+           "frames_decisions_equal": sum(a == b for a, b in zip(j_dig, t_dig)),
+           "first_diverging_frame": first,
+           "als_iters_there": (None if first is None else
+                               {"jax": int(jo.als_iters[first]), "port": int(to.als_iters[first])})}
+    if name == "default":
+        out["no_ik"] = _quality(_coco17(t_run(use_ik=False)[3]), ts, t_eval)
+    else:
+        out["app_stats"] = tst.app_stats.numpy().tolist()
+    if first is not None:
+        # the JAX run's state before the first diverging frame, by its own step
+        jstep = jax.jit(j_tracker.make_step(jctx))
+        jstate = j_tracker.TrackerState.zeros(jcfg)
+        for f in range(first):
+            frame = (jnp.asarray(jb.kps[f]), jnp.asarray(jb.valid[f]))
+            if japp is not None:
+                frame = frame + (jnp.asarray(japp[f]),)
+            jstate, _ = jstep(jstate, frame)
+        out["als_there_from_jax_state"] = _single_margins(
+            jctx, tctx, jstate, jb.kps[first], jb.valid[first], jcfg,
+            None if japp is None else japp[first])
+    emit(out)
 
 
 def wide_study(n_frames: int) -> None:
@@ -424,18 +593,92 @@ def cold_sensitivity_study(seeds, draws: int, n_frames: int = 6, delta: float = 
               "cold_solves": solves})
 
 
+def steps_study(scene: str, n_frames: int) -> None:
+    from multiview_motion_capture_torch.config import PipelineConfig as TConfig
+    from multiview_motion_capture_torch.data.synthetic import synthetic_appearance as t_app
+    from multiview_motion_capture_torch.ops import als_kernel
+
+    if not torch.cuda.is_available():
+        raise SystemExit("--study steps needs an NVIDIA GPU")
+    over, scene_kw, embed = _preset(scene)
+    cfg = TConfig(**over)
+    seq = t_synth(cfg=cfg, **dict(scene_kw, n_frames=n_frames))
+    app = None if embed is None else t_app(seq, **embed)
+    b = t_filter(seq.batch, cfg)
+    devs = ("cpu", "cuda")
+    ctx = {d: t_tracker.TrackerContext.build(seq.cameras, cfg, device=d) for d in devs}
+    step = {d: t_tracker.make_step(ctx[d]) for d in devs}
+    fields = t_tracker.TrackerState.__dataclass_fields__
+    floats = ("root", "euler", "side_lens", "pose3d", "root_vel", "app_ema", "app_stats")
+    seen, match_als = {}, als_kernel.match_als
+
+    def capturing(W, *args, **kwargs):      # the ALS input `associate` formed
+        seen[W.device.type] = W
+        return match_als(W, *args, **kwargs)
+
+    als_kernel.match_als = capturing
+    state = t_tracker.TrackerState.zeros(cfg, device="cpu")
+    try:
+        for f in range(n_frames):
+            on = {"cpu": state, "cuda": t_tracker.from_numpy_state(
+                {k: getattr(state, k).numpy() for k in fields}, device="cuda")}
+            frame = {d: (torch.as_tensor(b.kps[f], device=d),
+                         torch.as_tensor(b.valid[f], device=d),
+                         None if app is None else torch.as_tensor(app[f], device=d))
+                     for d in devs}
+            pred = {d: t_tracker.predict(on[d]) for d in devs}
+            assoc = {d: t_tracker.associate(ctx[d], pred[d], *frame[d]) for d in devs}
+            Wc, Wg = seen["cpu"], seen["cuda"].cpu()
+            plain = t_assoc.match_als(Wg, ctx["cpu"].diag_mask, ctx["cpu"].init_A, **_als_kw(cfg))
+            row = {"study": "steps", "scene": scene, "frame": f,
+                   "w_entries_differing": int((Wg != Wc).sum()),
+                   "w_max_abs_diff": float((Wg - Wc).abs().max()),
+                   "iters_kernel_card_w": int(assoc["cuda"].n_iters),
+                   "iters_plain_card_w": int(plain.n_iters),
+                   "iters_plain_cpu_w": int(assoc["cpu"].n_iters),
+                   "kernel_vs_plain_x_bin_differing": int(
+                       (assoc["cuda"].x_bin.cpu() != plain.x_bin).sum())}
+            if app is not None:
+                pen = {}
+                for d in devs:
+                    gain = t_tracker._appearance_gain(cfg, pred[d])
+                    pen[d] = (t_tracker._appearance_penalty(gain, pred[d].app_ema, frame[d][2]),
+                              t_tracker._appearance_penalty_d22(gain, frame[d][2]))
+                row["penalty_max_abs_diff"] = max(float((a.cpu() - c).abs().max())
+                                                  for a, c in zip(pen["cuda"], pen["cpu"]))
+            new = {d: step[d](on[d], *frame[d])[0] for d in devs}
+            row["state_entries_differing"] = {
+                k: n for k in floats
+                if (n := int((getattr(new["cuda"], k).cpu() != getattr(new["cpu"], k)).sum()))}
+            emit(row)
+            state = new["cpu"]
+    finally:
+        als_kernel.match_als = match_als
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--study", choices=("shelf", "wide", "cold"), default="shelf")
+    ap.add_argument("--study", choices=("shelf", "wide", "cold", "default", "appearance",
+                                        "steps"),
+                    default="shelf")
+    ap.add_argument("--scene", choices=("appearance", "default"), default="appearance",
+                    help="the scene of --study steps")
     ap.add_argument("--frames", type=int, default=None,
-                    help="frames of the scene (300 for shelf, 60 for wide)")
+                    help="frames of the scene (300 for shelf and default, 60 for wide, "
+                         "200 for appearance, 20 for steps)")
     ap.add_argument("--draws", type=int, default=None,
                     help="perturbation draws (12 for shelf, 2 for cold)")
     args = ap.parse_args()
-    jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(1)
+    if args.study == "steps":
+        steps_study(args.scene, args.frames or 20)
+        return
+    jax.config.update("jax_platforms", "cpu")
     if args.study == "cold":
         cold_sensitivity_study((1, 2), args.draws or 2)
+        return
+    if args.study in ("default", "appearance"):
+        preset_study(args.study, args.frames or (300 if args.study == "default" else 200))
         return
     args.draws = args.draws or 12
     if args.study == "wide":

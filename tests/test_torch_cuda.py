@@ -254,3 +254,78 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         solve_kernel.fused_normal_solve(torch.zeros(2, 8, 100, device=cuda),
                                         torch.zeros(2, device=cuda), torch.zeros(99, device=cuda))
+
+
+def _default_scene_frame0(cuda):
+    """PipelineConfig(n_views=5), the JAX package's default preset, on the
+    first frame of synthetic_sequence(4 people, 5 views, seed 0)."""
+    from multiview_motion_capture_torch import tracker
+    from multiview_motion_capture_torch.config import PipelineConfig
+    from multiview_motion_capture_torch.data.ingest import filter_bad_poses
+    from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
+
+    cfg = PipelineConfig(n_views=5, max_frames=None)
+    seq = synthetic_sequence(n_frames=1, n_people=4, n_views=5, seed=0, cfg=cfg)
+    return cfg, seq, filter_bad_poses(seq.batch, cfg), tracker
+
+
+def test_als_kernel_at_the_default_preset(cuda):
+    """B1 at the default preset's N = 66, rank 32 (one block) on its first
+    frame's spatial-only problem, to its own iteration count under the
+    1,000-iteration cap, and on a seeded problem of that shape."""
+    cfg, seq, b, tracker = _default_scene_frame0(cuda)
+    ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=cuda)
+    W, _ = tracker._spatial_similarity(ctx, torch.as_tensor(b.kps[0], device=cuda),
+                                       torch.as_tensor(b.valid[0], device=cuda))
+    assert tuple(ctx.init_A.shape) == (66, 32) and als_kernel.launch_shape(66, 32).cluster == 1
+    kw = dict(max_iter=cfg.als_max_iter, stable_iters=cfg.als_stable_iters)
+    problems = [(W.contiguous(), ctx.diag_mask, ctx.init_A),
+                _als_inputs(cuda, (16,) + (10,) * 5, 32, 1, seed=7)]
+    for W_, mask, init in problems:
+        W_ = W_.reshape(66, 66)
+        k = als_kernel.match_als(W_, mask, init, **kw)
+        p = association.match_als(W_, mask, init, **kw)
+        assert torch.equal(k.x_bin, p.x_bin) and int(k.n_iters) == int(p.n_iters)
+
+
+def test_chol_lm_card_equals_cpu(cuda):
+    """The default preset's staged Cholesky LM (f64 factor, the step
+    rounded once to f32) from the same inputs on the card and the CPU: each
+    person's cold solve from a geometric init, joints within 1e-3 m, and
+    none of the port's kernels launched."""
+    import numpy as np
+
+    from multiview_motion_capture_torch.ops import ik
+    from multiview_motion_capture_torch.ops.triangulate import triangulate_points
+
+    cfg, seq, b, _ = _default_scene_frame0(cuda)
+    T, V = 6, 5
+    obs = np.zeros((T, V, 17, 3), np.float32)
+    w = np.zeros((T, V), np.float32)
+    for v in range(V):
+        for p in range(seq.gt_slot_person.shape[2]):
+            pid = seq.gt_slot_person[0, v, p]
+            if pid >= 0 and b.valid[0, v, p]:
+                obs[pid, v], w[pid, v] = b.kps[0, v, p], 1.0
+    skel = ik.Skeleton.default()
+    P = seq.cameras.P.cpu().to(torch.float64)
+    K_inv = torch.linalg.inv(seq.cameras.K.cpu().to(torch.float64))
+    tri = triangulate_points(P, K_inv, ik.add_mid_spine(torch.as_tensor(obs)).double(),
+                             torch.as_tensor(w) > 0, cfg.triangulate_min_score, 2)
+    tri = torch.nan_to_num(tri).clamp(-100.0, 100.0)
+    init = ik.IkParams(root=(0.5 * (tri[:, ik._LHIP, :3] + tri[:, ik._RHIP, :3])).float(),
+                       euler=ik.geometric_init(tri, skel.to(torch.float64)).float(),
+                       side_lens=skel.side_bone_lens.expand(T, -1))
+    kw = dict(n_iters=cfg.ik_cold_iters, eps=cfg.ik_proj_eps, lam0=cfg.ik_lm_damping_init,
+              lam_up=cfg.ik_lm_damping_up, lam_down=cfg.ik_lm_damping_down,
+              stages=cfg.ik_cold_stages, solver="chol", ftol=cfg.ik_ftol, xtol=cfg.ik_xtol)
+    before = [k.launches for k in cuda_lib.ALL_KERNELS]
+    _, j_card = ik.solve_two_stage(ik.IkParams(*(a.to(cuda) for a in init)),
+                                   ik.Skeleton.default(device=cuda),
+                                   torch.as_tensor(obs, device=cuda),
+                                   torch.as_tensor(w, device=cuda), seq.cameras.P.to(cuda), **kw)
+    _, j_cpu = ik.solve_two_stage(init, skel, torch.as_tensor(obs), torch.as_tensor(w),
+                                  seq.cameras.P.cpu(), **kw)
+    assert [k.launches for k in cuda_lib.ALL_KERNELS] == before
+    assert torch.isfinite(j_card).all()
+    np.testing.assert_allclose(j_card.cpu().numpy(), j_cpu.numpy(), atol=1e-3)

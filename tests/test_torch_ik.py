@@ -1,11 +1,13 @@
 """The port's forward kinematics, analytic LM jacobian, geometric cold init
-and batched two-stage LM (`solver="gj"`) against the JAX package, on the
-CPU, from the same numpy inputs.
+and batched two-stage LM (`solver="gj"`, and the per-slot Cholesky route
+`solver="chol"` of the JAX package's default preset) against the JAX
+package, on the CPU, from the same numpy inputs.
 
 Tolerances: FK and the jacobian are a few f32 products deep (1e-5 m,
 1e-3 relative on jacobian entries of up to ~1e3 px/rad); the LM result goes
-through tens of accept/reject steps on f32 normal equations solved in
-another order of rounding, and agrees to 1e-3 m on well-observed slots.
+through tens of accept/reject steps on normal equations solved in another
+order of rounding (the port's Cholesky factors in f64, JAX's in f32), and
+agrees to 1e-3 m on well-observed slots.
 """
 import dataclasses
 
@@ -139,8 +141,49 @@ def test_solve_two_stage_gj_matches(problem):
     np.testing.assert_array_equal(tp.euler.numpy()[3], euler0[3])
 
 
-def test_only_the_gj_solver_is_ported(problem):
+@pytest.mark.parametrize("stages", [1, 2])
+def test_solve_two_stage_chol_matches(problem, stages):
+    """The default preset's LM: JAX vmaps a per-slot `while_loop` with an
+    f32 Cholesky (ik.py:280-357, 520-532); the port runs the masked batched
+    loop with the factor in f64 and the step rounded once to f32.  Staged
+    (pose, then pose + side lengths) and single, joints within 1e-3 m; the
+    empty slot starts frozen and comes back untouched."""
+    euler0 = TK.geometric_init(t(problem["tri"]), problem["skel"]).numpy()
+    side0 = np.tile(TF.REF_SIDE_BONE_LENS, (4, 1)).astype(np.float32)
+    kw = dict(n_iters=12, eps=J_CFG.ik_proj_eps, lam0=J_CFG.ik_lm_damping_init,
+              lam_up=J_CFG.ik_lm_damping_up, lam_down=J_CFG.ik_lm_damping_down,
+              stages=stages, ftol=J_CFG.ik_ftol, xtol=J_CFG.ik_xtol, solver="chol")
+    tp, tj = TK.solve_two_stage(TK.IkParams(t(problem["root"]), t(euler0), t(side0)),
+                                problem["skel"], t(problem["obs"]), t(problem["w"]),
+                                t(problem["P"]), **kw)
+    jp, jj = JK.solve_two_stage(
+        JK.IkParams(jnp.asarray(problem["root"]), jnp.asarray(euler0), jnp.asarray(side0)),
+        JF.Skeleton.default(), jnp.asarray(problem["obs"]), jnp.asarray(problem["w"]),
+        jnp.asarray(problem["P"]), **kw)
+    tj, jj = tj.numpy(), np.asarray(jj)
+    assert tj.dtype == np.float32 and np.isfinite(tj).all()
+    np.testing.assert_allclose(tj[:3], jj[:3], atol=1e-3)
+    np.testing.assert_allclose(tp.side_lens.numpy()[:3], np.asarray(jp.side_lens)[:3],
+                               atol=1e-3)
+    np.testing.assert_array_equal(tp.root.numpy()[3], problem["root"][3])
+    np.testing.assert_array_equal(tp.euler.numpy()[3], euler0[3])
+
+
+def test_cholesky_step_of_a_failed_factor_is_nan():
+    """A slot whose matrix is not positive definite gets a NaN step (its
+    cost is then not finite, so the LM does not take it) and nothing
+    raises; the other slots solve as `linalg.solve` does."""
+    A = torch.eye(3, dtype=torch.float64).repeat(3, 1, 1) * 2.0
+    A[1, 2, 2] = -1.0
+    A[2] += 0.5 * torch.ones(3, 3, dtype=torch.float64)
+    g = torch.arange(9, dtype=torch.float64).reshape(3, 3)
+    x = TK._cholesky_solve(A, g)
+    assert torch.isnan(x[1]).all()
+    torch.testing.assert_close(x[[0, 2]], torch.linalg.solve(A[[0, 2]], g[[0, 2]]))
+
+
+def test_unknown_solver_raises(problem):
     init = TK.IkParams(t(problem["root"]), torch.zeros(4, 18, 3), torch.ones(4, 11))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown ik solver"):
         TK.solve_two_stage(init, problem["skel"], t(problem["obs"]), t(problem["w"]),
-                           t(problem["P"]), n_iters=1, solver="chol")
+                           t(problem["P"]), n_iters=1, solver="lu")

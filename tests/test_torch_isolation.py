@@ -80,22 +80,29 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         tracker.TrackerContext.build(seq.cameras, cfg)
     with pytest.raises(RuntimeError, match="device='cuda'"):
         tracker.from_numpy_state({})
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        port.MvTracker(seq.cameras, cfg)
     # asking for the CPU works
     ctx = tracker.TrackerContext.build(seq.cameras, cfg, device="cpu")
     assert ctx.device.type == "cpu"
 
 
 def test_unported_options_raise():
+    """No option of the JAX tracker but a device mesh is left unported, so
+    none raises NotImplementedError any more: each builds.  What cannot run
+    still raises: more camera clusters than cameras, an unknown LM solver."""
     cfg = dataclasses.replace(SHELF_BENCH, n_views=3)
     cams = synthetic_sequence(n_frames=1, n_people=1, n_views=3, cfg=cfg).cameras
     for change in (dict(motion_gain=0.5), dict(appearance_dim=8), dict(ik_solver="chol")):
-        with pytest.raises(NotImplementedError):
-            tracker.TrackerContext.build(cams, dataclasses.replace(cfg, **change),
-                                         device="cpu")
-    with pytest.raises(NotImplementedError):
-        tracker.TrackerContext.build(cams, cfg, use_ik=False, device="cpu")
+        ctx = tracker.TrackerContext.build(cams, dataclasses.replace(cfg, **change),
+                                           device="cpu")
+        assert ctx.cfg == dataclasses.replace(cfg, **change)
+    assert not tracker.TrackerContext.build(cams, cfg, use_ik=False, device="cpu").use_ik
     with pytest.raises(ValueError, match="exceeds n_views"):
         tracker.TrackerContext.build(cams, dataclasses.replace(cfg, assoc_clusters=4),
+                                     device="cpu")
+    with pytest.raises(ValueError, match="ik_solver"):
+        tracker.TrackerContext.build(cams, dataclasses.replace(cfg, ik_solver="lu"),
                                      device="cpu")
 
 

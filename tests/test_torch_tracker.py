@@ -1,12 +1,15 @@
 """The port's tracker, pipeline and evaluation against the JAX package on the
 CPU: the whole slice (filter -> per-frame step -> tracklets) on a small
 synthetic scene under SHELF_BENCH's capacities, one step from a carried
-mid-sequence state, and the tracklet pickle schema both ways.
+mid-sequence state, the tracklet pickle schema both ways, triangulation
+mode (`use_ik=False`: all views with the motion gate on, `motion_gain`,
+and `ik_max_views` per-track views) and the gate's velocity state.
 
 Decisions (track ids, lifecycle states, updated/spawned flags, matched
 detections, deaths) must be equal.  Poses may differ by f32 rounding carried
 through the LM solves: 1e-3 m (the scene's detection noise is 1 px, about
-4 mm at this rig's scale).  The similarity matrices agree to 1e-5.
+4 mm at this rig's scale); triangulated poses (no LM) and the velocity EMA
+by 1e-5 m.  The similarity matrices agree to 1e-5.
 """
 import dataclasses
 import pickle
@@ -32,6 +35,7 @@ from multiview_motion_capture_tpu.data.synthetic import synthetic_sequence as j_
 
 DECISIONS = ("track_id", "active", "updated", "spawned", "died_track_id", "matched_pose")
 POSE_TOL_M = 1e-3
+TRI_TOL_M = 1e-5
 SIM_TOL = 1e-5
 N_FRAMES = 8
 
@@ -218,3 +222,123 @@ def test_config_copy_matches_jax(preset):
         return factory(16) if preset == "wide" else factory()
 
     assert dataclasses.asdict(build(tcfg)) == dataclasses.asdict(build(jcfg))
+
+
+# triangulation-mode cases: (ik_max_views, motion_gain)
+TRI_CASES = {"all_views_motion": (None, 1.0), "top2_views": (2, 0.0)}
+
+
+@pytest.fixture(scope="module")
+def tri_refs():
+    """Both packages in triangulation mode over the module's scene, once per
+    case: updates triangulate all their views with the motion gate on
+    (`motion_gain=1.0`: the constant-velocity gate and the root-velocity
+    EMA), or (`ik_max_views=2`) each track's two best views with per-track
+    cameras."""
+    torch.set_num_threads(1)
+    refs = {}
+    for case, (max_views, gain) in TRI_CASES.items():
+        over = dict(n_views=4, max_frames=None, ik_max_views=max_views, motion_gain=gain)
+        jc, tc = dataclasses.replace(J_CFG, **over), dataclasses.replace(T_CFG, **over)
+        kw = dict(n_frames=N_FRAMES, n_people=3, n_views=4, seed=1)
+        js, ts = j_synth(cfg=jc, **kw), t_synth(cfg=tc, **kw)
+        jb, tb = j_filter(js.batch, jc), t_filter(ts.batch, tc)
+        jctx = JT.TrackerContext.build(js.cameras, jc, use_ik=False)
+        jstate, jo = JT.run_offline(jctx, jnp.asarray(jb.kps), jnp.asarray(jb.valid))
+        tctx = TT.TrackerContext.build(ts.cameras, tc, use_ik=False, device="cpu")
+        tstate, to = TT.run_offline(tctx, tb.kps, tb.valid)
+        refs[case] = dict(jo=jax.device_get(jo), to=TT.outputs_to_numpy(to), tctx=tctx,
+                          jstate=jax.device_get(jstate), tstate=tstate)
+    return refs
+
+
+@pytest.fixture(params=list(TRI_CASES))
+def tri_runs(request, tri_refs):
+    return tri_refs[request.param]
+
+
+@pytest.mark.parametrize("field", DECISIONS)
+def test_triangulation_mode_decisions_equal(tri_runs, field):
+    a, b = np.asarray(getattr(tri_runs["jo"], field)), getattr(tri_runs["to"], field)
+    bad = np.nonzero((a != b).reshape(N_FRAMES, -1).any(1))[0]
+    assert len(bad) == 0, f"{field} differs from frame {bad[:5]}"
+
+
+def test_triangulation_mode_poses(tri_runs):
+    """Triangulated COCO+spine poses, their scores and the hip-midpoint
+    root; angles and side lengths stay at zero (no IK)."""
+    jo, to = tri_runs["jo"], tri_runs["to"]
+    upd = np.asarray(jo.updated)
+    assert not tri_runs["tctx"].use_ik
+    assert to.spawned.any() and (to.updated & ~to.spawned).any()
+    for f in ("pose3d", "pose3d_score", "root"):
+        np.testing.assert_allclose(getattr(to, f)[upd], np.asarray(getattr(jo, f))[upd],
+                                   atol=TRI_TOL_M, err_msg=f)
+    np.testing.assert_allclose(to.root[upd], 0.5 * (to.pose3d[upd][:, 11] + to.pose3d[upd][:, 12]),
+                               atol=1e-6)
+    assert not to.euler.any() and not to.side_lens.any()
+
+
+def test_motion_gain_velocity_state(tri_refs):
+    """cfg.motion_gain: the EMA root velocity after the module's
+    triangulation-mode run with the gate on equals JAX's within 1e-5 m
+    (its decisions are held by the triangulation tests).  On the scene of
+    the JAX package's tests/test_tracker.py::test_motion_gain_velocity_state
+    (one person walking at constant speed, the EMA at beta 1) the velocity
+    is the true per-frame hip displacement within 1 cm, and it stays zero
+    when the gate is off."""
+    from multiview_motion_capture_torch.config import PipelineConfig as TConfig
+
+    ref = tri_refs["all_views_motion"]
+    tvel, jvel = ref["tstate"].root_vel.numpy(), np.asarray(ref["jstate"].root_vel)
+    np.testing.assert_allclose(tvel, jvel, atol=TRI_TOL_M)
+    assert np.abs(tvel[ref["tstate"].active.numpy() > 0]).max() > 1e-3
+
+    over = dict(n_views=4, max_people=3, max_tracks=4, max_frames=None, als_max_iter=100)
+    kw = dict(n_frames=10, n_people=1, n_views=4, seed=5, drop_prob=0.0, noise_px=0.1)
+    tc = TConfig(**over, motion_gain=1.0, motion_vel_beta=1.0)
+    ts = t_synth(cfg=tc, **kw)
+    tstate, _ = TT.run_offline(TT.TrackerContext.build(ts.cameras, tc, use_ik=False,
+                                                       device="cpu"),
+                               ts.batch.kps, ts.batch.valid)
+    slot = int(np.argmax(tstate.active.numpy()))
+    assert tstate.active[slot] > 0
+    gt_vel = ts.gt_3d[-1, 0] - ts.gt_3d[-2, 0]
+    gt_hip = 0.5 * (gt_vel[11] + gt_vel[12])
+    assert np.linalg.norm(tstate.root_vel.numpy()[slot] - gt_hip) < 0.01
+
+    state0, _ = TT.run_offline(
+        TT.TrackerContext.build(ts.cameras, TConfig(**over), use_ik=False, device="cpu"),
+        ts.batch.kps, ts.batch.valid)
+    assert not state0.root_vel.any()
+
+
+def test_motion_gate_distances_match(runs):
+    """The gate's constant-velocity shift: d23 of a carried state with a
+    nonzero root velocity, both packages."""
+    from multiview_motion_capture_torch.config import PipelineConfig as TConfig
+
+    f = N_FRAMES - 1
+    arrays = _state_arrays(runs["jstate"])
+    arrays["root_vel"] = np.tile(np.float32([[0.05, -0.03, 0.0]]), (T_CFG.max_tracks, 1))
+    arrays["time_since_update"] = np.full(T_CFG.max_tracks, 2, np.int32)
+    tc = dataclasses.replace(runs["tc"], motion_gain=1.0)
+    jc = dataclasses.replace(runs["jc"], motion_gain=1.0)
+    assert isinstance(tc, TConfig)
+    tctx = dataclasses.replace(runs["tctx"], cfg=tc)
+    jctx = dataclasses.replace(runs["jctx"], cfg=jc)
+    jstate = runs["jstate"].replace(**{k: jnp.asarray(arrays[k])
+                                       for k in ("root_vel", "time_since_update")})
+    dt = TT._track_det_distances(tctx, TT.from_numpy_state(arrays, device="cpu"),
+                                 torch.as_tensor(runs["tb"].kps[f]),
+                                 torch.as_tensor(runs["tb"].valid[f]))
+    dj = JT._track_det_distances(jctx, jstate, jnp.asarray(runs["jb"].kps[f]),
+                                 jnp.asarray(runs["jb"].valid[f]))
+    d0 = TT._track_det_distances(runs["tctx"], TT.from_numpy_state(arrays, device="cpu"),
+                                 torch.as_tensor(runs["tb"].kps[f]),
+                                 torch.as_tensor(runs["tb"].valid[f]))
+    finite = np.isfinite(np.asarray(dj))
+    assert finite.any()
+    np.testing.assert_array_equal(np.isfinite(dt.numpy()), finite)
+    np.testing.assert_allclose(dt.numpy()[finite], np.asarray(dj)[finite], rtol=1e-5, atol=1e-3)
+    assert not np.allclose(dt.numpy()[finite], d0.numpy()[finite])
