@@ -27,6 +27,14 @@ each with the launch counters set to 0 just before it and read just after:
   study's 10-camera, 10-person, 200-frame scene (extractor-grade synthetic
   embeddings, the auto gain; kernels B1 as a cluster of 16, B2), its
   quality against the JAX package's, and `appearance_parity`;
+- `identity`: the host post-passes on the appearance run's raw tracklets
+  (`resolve_crossings`, `merge_tracklets`, the ghost filter at length 2),
+  IDF1 and ID switches after each against the ground truth, the final IDF1
+  held within IDF1_TOL of the JAX package's on the same scene;
+- `checkpoint`: `pipeline.run(crossings=True, checkpoint_dir=...)` on that
+  scene in chunks of 50 frames (B1, B2), its tracklets bit-equal to the
+  `identity` phase's final ones, again after a resume from chunk 1, with
+  the resumed state loaded onto the card;
 - `wide`: `pipeline.run` on `PipelineConfig.wide(64)` over a 60-frame,
   10-person, 64-camera scene (two camera clusters: kernel B3 batched ALS,
   B2), its quality and per-frame decisions against the JAX package's run
@@ -159,6 +167,22 @@ APPEARANCE_REFERENCE = dict(
     mean_reproj_px=2.0581043661681804, median_reproj_px=1.6518283784836114,
     n_degenerate_poses=0)
 APPEARANCE_PARITY_FRAMES = 20
+# the `identity` phase's post-passes on the appearance scene's raw tracklets:
+# resolve_crossings, merge_tracklets, then the ghost filter at this length;
+# the `checkpoint` phase runs the same through pipeline.run in chunks
+IDENTITY_MIN_TRACK_LENGTH = 2
+CHECKPOINT_EVERY = 50
+# JAX package on the CPU, the same scene, raw tracklets and post-passes
+# (scripts/torch_parity_study.py --study identity, "identity_reference")
+IDENTITY_REFERENCE = dict(
+    raw=dict(n_tracks=29, idf1=0.6774356385663807, id_switches=30),
+    crossings=dict(n_tracks=39, idf1=0.6920747097425543, id_switches=35, events=7, swaps=0,
+                   cuts=10),
+    reid=dict(n_tracks=10, idf1=0.9843513377082281, id_switches=10),
+    ghost_filter=dict(n_tracks=10, idf1=0.9843513377082281, id_switches=10))
+# one mis-merged 20-frame fragment among the scene's ~2,000 person-frames
+# moves IDF1 by about 0.01
+IDF1_TOL = 0.01
 
 
 def emit(obj) -> None:
@@ -1006,6 +1030,114 @@ def phase_appearance(torch, dev, seq, cfg, app):
     if not (stats[2] > 0.5 and all(map(math.isfinite, stats))):
         raise AssertionError("the auto-gain statistics did not collect")
     gate_quality("appearance", q, APPEARANCE_REFERENCE)
+    return launches, res.tracklets
+
+
+def identity_scores(tracklets, seq) -> dict:
+    from multiview_motion_capture_torch import eval as ev
+
+    m = ev.identity_metrics(tracklets, seq.gt_slot_person)
+    return {"n_tracks": m.n_pred_tracks, "idf1": m.idf1, "id_switches": m.id_switches,
+            "fragments": m.fragments_per_identity, "gt_identities": m.n_gt_identities}
+
+
+def phase_identity(seq, raw):
+    """The host post-passes on the appearance run's raw tracklets (its
+    config keeps every tracklet: min_track_length 1), in `pipeline.run`'s
+    order: crossing repair, the re-ID merge, the ghost filter.  Identity
+    scores after each stage beside the JAX package's; the final IDF1 is
+    held within IDF1_TOL of the JAX package's.  No kernel runs here."""
+    from multiview_motion_capture_torch import crossings, pipeline, reid
+
+    t0 = time.perf_counter()
+    crossed, log = crossings.resolve_crossings(list(raw), return_log=True)
+    merged = reid.merge_tracklets(crossed)
+    final = pipeline.filter_ghost_tracklets(merged, IDENTITY_MIN_TRACK_LENGTH)
+    host_s = time.perf_counter() - t0
+    stages = {"raw": raw, "crossings": crossed, "reid": merged, "ghost_filter": final}
+    scores = {k: identity_scores(v, seq) for k, v in stages.items()}
+    scores["crossings"].update(
+        events=sum(1 for e in log if "t_star" in e), swaps=sum(1 for e in log if e.get("swap")),
+        cuts=sum(1 for e in log if "cut_track" in e or "cut" in e))
+    ref = IDENTITY_REFERENCE
+    emit({"phase": "identity", "post_pass_host_s": host_s, **scores,
+          "id_switches_by_stage": {k: {"port": scores[k]["id_switches"],
+                                       "jax": ref[k]["id_switches"]} for k in stages},
+          "idf1_by_stage": {k: {"port": scores[k]["idf1"], "jax": ref[k]["idf1"]}
+                            for k in stages},
+          "idf1_tol": IDF1_TOL})
+    if not abs(scores["ghost_filter"]["idf1"] - ref["ghost_filter"]["idf1"]) <= IDF1_TOL:
+        raise AssertionError("the final IDF1 is off the JAX package's")
+    return final
+
+
+def tracklets_differing(a, b) -> list:
+    """Where two tracklet lists differ, field by field (empty: bit-equal)."""
+    import numpy as np
+
+    if len(a) != len(b):
+        return [f"{len(a)} tracklets vs {len(b)}"]
+    bad = []
+    for i, (x, y) in enumerate(zip(a, b)):
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            same = (u is None and v is None) if u is None or v is None else \
+                np.array_equal(np.asarray(u), np.asarray(v), equal_nan=True)
+            if not same:
+                bad.append(f"tracklet {i}: {f.name}")
+    return bad
+
+
+def phase_checkpoint(torch, dev, seq, cfg, app, final):
+    """`pipeline.run` in checkpointed chunks with the crossing repair (and
+    so the merge) and the ghost filter at IDENTITY_MIN_TRACK_LENGTH: one
+    pass of the scene in chunks of CHECKPOINT_EVERY frames, each chunk's
+    state and outputs written, then a resume after chunk 1 with the state
+    loaded onto the card.  Both runs' tracklets must equal the `identity`
+    phase's final tracklets bit for bit: same card, same inputs, and the
+    chunks and the post-passes change nothing."""
+    import json
+    import tempfile
+
+    from multiview_motion_capture_torch import pipeline
+    from multiview_motion_capture_torch.utils import checkpoint as ckpt
+
+    ccfg = dataclasses.replace(cfg, min_track_length=IDENTITY_MIN_TRACK_LENGTH)
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        ck = Path(tmp) / "checkpoints"
+
+        def run():
+            t0 = time.perf_counter()
+            res = pipeline.run(seq.batch, seq.cameras, ccfg, app=app, crossings=True,
+                               checkpoint_dir=ck, checkpoint_every=CHECKPOINT_EVERY,
+                               device=dev)
+            return res, time.perf_counter() - t0
+
+        zero_launch_counts()
+        res, run_s = run()
+        launches = launch_counts()
+        chunks = sorted(p.name for p in ck.glob("chunk_*.npz"))
+        bad = tracklets_differing(res.tracklets, final)
+        state = ckpt.load_state(ck, 1, device=dev)
+        on_card = all(getattr(state, f.name).device.type == "cuda"
+                      for f in dataclasses.fields(state))
+        (ck / "meta.json").write_text(json.dumps({"last_chunk": 1,
+                                                  "end_frame": 2 * CHECKPOINT_EVERY}))
+        resumed, resume_s = run()
+        bad_resumed = tracklets_differing(resumed.tracklets, final)
+    emit({"phase": "checkpoint", "frames": res.n_frames, "every": CHECKPOINT_EVERY,
+          "chunks": len(chunks), "run_s": run_s, "track_time_s": res.track_time_s,
+          "resume_s": resume_s, "resumed_track_time_s": resumed.track_time_s,
+          "timings": res.timings, "tracklets": len(res.tracklets),
+          "bit_equal_identity": not bad, "resumed_bit_equal_identity": not bad_resumed,
+          "fields_differing": {"run": bad[:10], "resumed": bad_resumed[:10]},
+          "resumed_state_on_card": on_card, "launches": launches})
+    if bad or bad_resumed:
+        raise AssertionError("the checkpointed run differs from the identity phase's tracklets")
+    if not (on_card and len(chunks) == -(-res.n_frames // CHECKPOINT_EVERY)
+            and launches["als"] > 0 and launches["gj_solve"] > 0):
+        raise AssertionError("checkpoint state, chunks or kernel launches missing")
     return launches
 
 
@@ -1131,9 +1263,13 @@ def main() -> int:
     no_ik_launches = run_phase("no_ik", phase_no_ik, torch, "cuda", dseq, dcfg)
     stream_launches = run_phase("stream", phase_stream, torch, "cuda", dseq,
                                 dataclasses.replace(dcfg, motion_gain=1.0))
-    app_launches = run_phase("appearance", phase_appearance, torch, "cuda", aseq, acfg, app)
+    app_launches, app_tracklets = run_phase("appearance", phase_appearance, torch, "cuda",
+                                            aseq, acfg, app)
     run_phase("appearance_parity", phase_parity, torch, "cuda", aseq, acfg,
               APPEARANCE_PARITY_FRAMES, "appearance_parity", app)
+    final = run_phase("identity", phase_identity, aseq, app_tracklets)
+    checkpoint_launches = run_phase("checkpoint", phase_checkpoint, torch, "cuda", aseq, acfg,
+                                    app, final)
 
     wcfg = PipelineConfig.wide(WIDE_SCENE["n_views"], max_frames=None)
     wseq = synthetic_sequence(cfg=wcfg, **WIDE_SCENE)
@@ -1146,7 +1282,8 @@ def main() -> int:
               "wide_profile")
 
     paths = {"slice": slice_launches, "default": default_launches, "no_ik": no_ik_launches,
-             "stream": stream_launches, "appearance": app_launches, "wide": wide_launches,
+             "stream": stream_launches, "appearance": app_launches,
+             "checkpoint": checkpoint_launches, "wide": wide_launches,
              "wide_fused": fused_launches}
 
     def row(kernel, replaces, r, library_ms):

@@ -2,7 +2,8 @@
 
 Port of `multiview_motion_capture_tpu/data/ingest.py` (numpy only; the
 optional C++ scanner of the JAX package is not ported, the `json` parser
-gives the same arrays).  The whole sequence is packed into dense padded
+gives the same arrays), with its per-camera .npy reader and the packed npz
+writer and reader.  The whole sequence is packed into dense padded
 arrays
 
     kps:   (F, V, P_max, K, 3) float32   (x, y, score), zero-padded
@@ -113,3 +114,34 @@ def filter_bad_poses(batch: FrameBatch, cfg: PipelineConfig) -> FrameBatch:
 
     new_valid = batch.valid & enough_kps & bbox_ok
     return FrameBatch(kps=batch.kps, valid=new_valid)
+
+
+def load_npy_keypoints(npy_paths, cfg: PipelineConfig,
+                       max_frames: Optional[int] = None) -> FrameBatch:
+    """Alternative ingest: one .npy per camera with (F, P_i, K, 3) keypoints
+    (the reference's `kpts_to_frames.py` input contract,
+    ref:src/kpts_to_frames.py:26-45).  A slot is valid where any of its
+    keypoints scores above 0."""
+    arrays = [np.load(p) for p in npy_paths]
+    n_frames = min(a.shape[0] for a in arrays)
+    if max_frames is not None:
+        n_frames = min(n_frames, max_frames)
+    V, P, K = len(arrays), cfg.max_people, cfg.n_kps
+    kps = np.zeros((n_frames, V, P, K, 3), dtype=np.float32)
+    valid = np.zeros((n_frames, V, P), dtype=bool)
+    for v, a in enumerate(arrays):
+        n = min(a.shape[1], P)
+        kps[:, v, :n] = a[:n_frames, :n, :K, :3]
+        valid[:, v, :n] = a[:n_frames, :n, :, 2].max(axis=-1) > 0
+    return FrameBatch(kps=kps, valid=valid)
+
+
+def save_frame_batch(path: Path, batch: FrameBatch) -> None:
+    """Write a packed batch as npz (`kps`, `valid`)."""
+    np.savez_compressed(path, kps=batch.kps, valid=batch.valid)
+
+
+def load_frame_batch(path: Path) -> FrameBatch:
+    """Read a batch written by `save_frame_batch` (of either package)."""
+    with np.load(path) as z:
+        return FrameBatch(kps=z["kps"], valid=z["valid"])

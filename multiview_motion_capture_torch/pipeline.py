@@ -1,11 +1,15 @@
-"""End-to-end run: filter detections, track the whole sequence, emit
-tracklets.
+"""End-to-end entry points: prepare / run / evaluate.
 
-Port of `multiview_motion_capture_tpu/pipeline.py:run` (IK or
-triangulation mode, appearance embeddings; not yet its checkpointing, re-ID,
-crossing repair or device mesh), plus `filter_ghost_tracklets` and the tracklet pickle writer/reader with the
-same schema of plain dicts, so files load in either package (or with
-neither installed).
+Port of `multiview_motion_capture_tpu/pipeline.py` but its device mesh:
+
+- `prepare`: OpenPose JSON -> packed npz (`data.ingest`);
+- `run`: filter detections, track the whole sequence on the card (IK or
+  triangulation mode, appearance embeddings), optionally in checkpointed
+  chunks that a restarted run resumes, then the host post-passes (crossing
+  repair, the re-ID merge, the ghost filter) on the tracklets;
+- `filter_ghost_tracklets`, `mpjpe_between`, and the tracklet pickle
+  writer/reader with the same schema of plain dicts, so files load in
+  either package (or with neither installed).
 """
 from __future__ import annotations
 
@@ -23,7 +27,14 @@ import torch
 
 from multiview_motion_capture_torch.cameras import CameraBank
 from multiview_motion_capture_torch.config import PipelineConfig
-from multiview_motion_capture_torch.data.ingest import FrameBatch, filter_bad_poses
+from multiview_motion_capture_torch.crossings import resolve_crossings
+from multiview_motion_capture_torch.data.ingest import (
+    FrameBatch,
+    filter_bad_poses,
+    load_openpose_dir,
+    save_frame_batch,
+)
+from multiview_motion_capture_torch.reid import merge_tracklets
 from multiview_motion_capture_torch.tracker import (
     Tracklet,
     TrackerContext,
@@ -31,6 +42,7 @@ from multiview_motion_capture_torch.tracker import (
     outputs_to_numpy,
     run_offline,
 )
+from multiview_motion_capture_torch.utils import checkpoint as ckpt
 from multiview_motion_capture_torch.utils.precision import resolve_device
 
 
@@ -39,7 +51,8 @@ class RunResult:
     tracklets: List[Tracklet]
     n_frames: int
     wall_time_s: float
-    track_time_s: float     # steady-state (second) pass, device synchronized
+    track_time_s: float     # steady-state (second) pass, device synchronized;
+                            # with checkpoints, the one chunked pass
     timings: dict
     # mean concurrent CONFIRMED tracks over the run (density diagnostic)
     mean_concurrent_tracks: float = 0.0
@@ -86,8 +99,20 @@ def _density_guard(cfg: PipelineConfig, active: np.ndarray) -> float:
     return mean_conc
 
 
+def prepare(kps_dir: Path, out_path: Path, cfg: Optional[PipelineConfig] = None,
+            max_frames: Optional[int] = None) -> FrameBatch:
+    """Parse OpenPose JSON into the packed npz (ref:src/motion_capture.py:
+    987-1005); `data.ingest.load_frame_batch` reads it back."""
+    cfg = cfg or PipelineConfig()
+    batch = load_openpose_dir(Path(kps_dir), cfg, max_frames=max_frames)
+    save_frame_batch(Path(out_path), batch)
+    return batch
+
+
 def run(batch: FrameBatch, cams: CameraBank, cfg: Optional[PipelineConfig] = None,
         use_ik: bool = True, skip_first_frame: bool = False, app=None,
+        checkpoint_dir: Optional[Path] = None, checkpoint_every: int = 100,
+        reid: bool = False, reid_cfg=None, crossings: bool = False, crossings_cfg=None,
         device="cuda") -> RunResult:
     """Filter detections, then track and solve the whole sequence on
     `device` ("cuda" unless the caller asks for "cpu").  The sequence is
@@ -99,10 +124,31 @@ def run(batch: FrameBatch, cams: CameraBank, cfg: Optional[PipelineConfig] = Non
     per-detection appearance embeddings, needed when
     `cfg.appearance_dim > 0`.  `skip_first_frame` replicates the
     reference's off-by-one (frm_idx starts at 1,
-    ref:src/motion_capture.py:1058-1063)."""
+    ref:src/motion_capture.py:1058-1063).
+
+    With `checkpoint_dir`, the sequence is tracked once, in chunks of
+    `checkpoint_every` frames; after each chunk the tracker state and the
+    chunk's outputs are written there (`utils.checkpoint`), and a run
+    started on a directory that holds checkpoints resumes after the last
+    completed chunk, its state loaded onto `device`.  `track_time_s` is
+    then that one pass, first-use costs and the writes included.
+
+    The tracklets then pass, on the host, through `crossings.resolve_crossings`
+    (`crossings=True`, with `crossings_cfg`), `reid.merge_tracklets`
+    (`reid=True`, or implied by `crossings`: the crossing repair's cuts are
+    meant to be reassembled by the merge, with `reid_cfg`), and
+    `filter_ghost_tracklets(cfg.min_track_length)`, in the JAX package's
+    order."""
     dev = resolve_device(device)
     cfg = cfg or PipelineConfig(n_views=batch.n_views)
     timer = _StageTimer(dev)
+
+    def post(tracklets: List[Tracklet]) -> List[Tracklet]:
+        if crossings:
+            tracklets = resolve_crossings(tracklets, crossings_cfg)
+        if reid or crossings:
+            tracklets = merge_tracklets(tracklets, reid_cfg)
+        return filter_ghost_tracklets(tracklets, cfg.min_track_length)
 
     with timer.stage("filter"):
         batch = filter_bad_poses(batch, cfg)
@@ -127,18 +173,38 @@ def run(batch: FrameBatch, cams: CameraBank, cfg: Optional[PipelineConfig] = Non
         valid = torch.as_tensor(batch.valid[start:end], device=dev)
         if app is not None:
             app = torch.as_tensor(app, dtype=torch.float32, device=dev)
-    with timer.stage("warmup+track"):
-        run_offline(ctx, kps, valid, app=app)
-    with timer.stage("track"):
-        t1 = time.perf_counter()
-        _, outputs = run_offline(ctx, kps, valid, app=app)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        track_time = time.perf_counter() - t1
-    with timer.stage("assemble"):
-        host_out = outputs_to_numpy(outputs)
-        tracklets = filter_ghost_tracklets(
-            assemble_tracklets(host_out, list(frame_idxs)), cfg.min_track_length)
+
+    if checkpoint_dir is not None:
+        n = int(end - start)
+        n_chunks = (n + checkpoint_every - 1) // checkpoint_every
+        info = ckpt.resume_info(checkpoint_dir)
+        first_chunk, state = 0, None
+        if info is not None:
+            first_chunk = info["last_chunk"] + 1
+            state = ckpt.load_state(checkpoint_dir, info["last_chunk"], device=dev)
+        with timer.stage("warmup+track"):
+            t1 = time.perf_counter()
+            for c in range(first_chunk, n_chunks):
+                s, e = c * checkpoint_every, min(n, (c + 1) * checkpoint_every)
+                state, outs = run_offline(ctx, kps[s:e], valid[s:e], state=state,
+                                          app=None if app is None else app[s:e])
+                ckpt.save_chunk(checkpoint_dir, c, e, state, outputs_to_numpy(outs))
+            track_time = time.perf_counter() - t1
+        with timer.stage("assemble"):
+            host_out = ckpt.concat_outputs(ckpt.load_outputs(checkpoint_dir, n_chunks - 1))
+            tracklets = post(assemble_tracklets(host_out, list(frame_idxs)))
+    else:
+        with timer.stage("warmup+track"):
+            run_offline(ctx, kps, valid, app=app)
+        with timer.stage("track"):
+            t1 = time.perf_counter()
+            _, outputs = run_offline(ctx, kps, valid, app=app)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            track_time = time.perf_counter() - t1
+        with timer.stage("assemble"):
+            host_out = outputs_to_numpy(outputs)
+            tracklets = post(assemble_tracklets(host_out, list(frame_idxs)))
 
     return RunResult(
         tracklets=tracklets,
@@ -200,3 +266,18 @@ def load_tracklets(path: Path) -> List[Tracklet]:
         )
         for d in payload["tracklets"]
     ]
+
+
+def mpjpe_between(t_a: Tracklet, t_b: Tracklet, joint_idx=None) -> float:
+    """Mean per-joint position error over the overlapping frames of two
+    tracklets (the parity metric of BASELINE.md)."""
+    frames_a = {f: i for i, f in enumerate(t_a.frame_idxs)}
+    pairs = [(frames_a[f], j) for j, f in enumerate(t_b.frame_idxs) if f in frames_a]
+    if not pairs:
+        return float("nan")
+    ia, ib = zip(*pairs)
+    pa = t_a.poses_3d[list(ia)]
+    pb = t_b.poses_3d[list(ib)]
+    if joint_idx is not None:
+        pa, pb = pa[:, joint_idx], pb[:, joint_idx]
+    return float(np.linalg.norm(pa - pb, axis=-1).mean())

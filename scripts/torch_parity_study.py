@@ -6,6 +6,7 @@
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study cold [--draws 2]
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study default [--frames 300]
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study appearance [--frames 200]
+    JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study identity [--frames 200]
     python scripts/torch_parity_study.py --study steps [--scene appearance] [--frames 20]
 
 The default study runs the synthetic scene of the port's smoke test
@@ -86,6 +87,28 @@ auto gain).  Each prints:
   JAX run's state, solved by the JAX `match_als` and the port's plain
   version on each package's W (iterations, binarized entries that differ,
   the smallest |X - 0.5| over the valid entries).
+
+`--study identity` runs the smoke test's `identity` phase on both packages:
+the `appearance` scene's raw tracklets (the filter and one `run_offline`,
+as that phase's `pipeline.run` gives them at min_track_length 1), then
+`resolve_crossings`, `merge_tracklets` and `filter_ghost_tracklets(.,
+chip_smoke.IDENTITY_MIN_TRACK_LENGTH)`, with `identity_metrics` against the
+ground truth after each stage.  It prints:
+
+- "identity_reference": the JAX package's stages (IDF1, ID switches,
+  tracks, fragments per identity, and for the crossings stage its crossing
+  events, swaps and cuts): the constants `chip_smoke.py`'s
+  IDENTITY_REFERENCE holds;
+- "identity_sequence": the port's stages on its own CPU run, and whether
+  the port's post-passes on the JAX package's raw tracklets give the JAX
+  package's tracklets and logs at every stage (they must: any difference
+  then enters through the raw tracklets);
+- "identity_divergence": the first raw tracklet of either run that the
+  other lacks (id, frames, first frame), the first crossing-log entry that
+  differs (both entries), the first frame whose decisions differ, both
+  runs' ALS iterations there and that frame's ALS problem from the JAX
+  run's state (iterations, binarized entries that differ, the smallest
+  |X - 0.5|), as `--study appearance` prints it.
 
 `--study steps` holds the port on the card against the port on the CPU, on
 the `default` or `appearance` scene (`--scene`), frame by frame from one
@@ -452,6 +475,120 @@ def preset_study(name: str, n_frames: int) -> None:
     emit(out)
 
 
+def _identity_stages(tracklets, gt_slot_person, crossings, reid, ghost_filter, ev) -> tuple:
+    """One package's post-passes in `pipeline.run`'s order; returns (the
+    stages' identity scores, each stage's tracklets, the crossing log)."""
+
+    def score(ts):
+        m = ev.identity_metrics(ts, gt_slot_person)
+        return {"n_tracks": m.n_pred_tracks, "idf1": m.idf1, "id_switches": m.id_switches,
+                "fragments": m.fragments_per_identity, "gt_identities": m.n_gt_identities}
+
+    crossed, log = crossings.resolve_crossings(list(tracklets), return_log=True)
+    merged = reid.merge_tracklets(crossed)
+    final = ghost_filter(merged, chip_smoke.IDENTITY_MIN_TRACK_LENGTH)
+    stages = {"raw": tracklets, "crossings": crossed, "reid": merged, "ghost_filter": final}
+    scores = {k: score(v) for k, v in stages.items()}
+    scores["crossings"].update(
+        events=sum(1 for e in log if "t_star" in e), swaps=sum(1 for e in log if e.get("swap")),
+        cuts=sum(1 for e in log if "cut_track" in e or "cut" in e))
+    return scores, stages, log
+
+
+def _tracklet_key(t) -> tuple:
+    return (int(t.track_id), tuple(int(f) for f in t.frame_idxs),
+            np.asarray(t.matched_pose).tobytes())
+
+
+def _same_tracklets(a, b) -> bool:
+    return len(a) == len(b) and all(
+        _tracklet_key(x) == _tracklet_key(y)
+        and all(np.array_equal(np.asarray(getattr(x, f)), np.asarray(getattr(y, f)),
+                               equal_nan=True)
+                for f in ("roots", "eulers", "side_lens", "poses_3d", "poses_score", "app"))
+        for x, y in zip(a, b))
+
+
+def identity_study(n_frames: int) -> None:
+    from multiview_motion_capture_torch import crossings as t_crossings
+    from multiview_motion_capture_torch import reid as t_reid
+    from multiview_motion_capture_torch.config import PipelineConfig as TConfig
+    from multiview_motion_capture_torch.data.synthetic import synthetic_appearance as t_app
+    from multiview_motion_capture_torch.tracker import Tracklet as TTracklet
+    from multiview_motion_capture_tpu import crossings as j_crossings
+    from multiview_motion_capture_tpu import reid as j_reid
+    from multiview_motion_capture_tpu.config import PipelineConfig as JConfig
+    from multiview_motion_capture_tpu.data.synthetic import synthetic_appearance as j_app
+
+    over, scene, embed = _preset("appearance")
+    scene = dict(scene, n_frames=n_frames)
+    jcfg, tcfg = JConfig(**over), TConfig(**over)
+    js, ts = j_synth(cfg=jcfg, **scene), t_synth(cfg=tcfg, **scene)
+    japp, tapp = j_app(js, **embed), t_app(ts, **embed)
+    assert np.array_equal(js.batch.kps, ts.batch.kps) and np.array_equal(japp, tapp)
+    jb, tb = j_filter(js.batch, jcfg), t_filter(ts.batch, tcfg)
+    gt = js.gt_slot_person
+
+    jctx = j_tracker.TrackerContext.build(js.cameras, jcfg)
+    _, jo = j_tracker.run_offline(jctx, jnp.asarray(jb.kps), jnp.asarray(jb.valid),
+                                  app=jnp.asarray(japp))
+    jo = jax.device_get(jo)
+    j_raw = j_tracker.assemble_tracklets(jo)
+    tctx = t_tracker.TrackerContext.build(ts.cameras, tcfg, device="cpu")
+    _, to = t_tracker.run_offline(tctx, tb.kps, tb.valid, app=tapp)
+    to = t_tracker.outputs_to_numpy(to)
+    t_raw = t_tracker.assemble_tracklets(to)
+
+    j_scores, j_stages, j_log = _identity_stages(j_raw, gt, j_crossings, j_reid,
+                                                 j_pipeline.filter_ghost_tracklets, j_eval)
+    emit({"study": "identity_reference", "frames": n_frames,
+          "min_track_length": chip_smoke.IDENTITY_MIN_TRACK_LENGTH, **j_scores})
+    t_scores, _, t_log = _identity_stages(t_raw, gt, t_crossings, t_reid,
+                                          t_pipeline.filter_ghost_tracklets, t_eval)
+    # the port's post-passes on the JAX run's raw tracklets
+    fields = [f.name for f in dataclasses.fields(TTracklet)]
+    as_port = [TTracklet(**{k: getattr(t, k) for k in fields}) for t in j_raw]
+    x_scores, x_stages, x_log = _identity_stages(as_port, gt, t_crossings, t_reid,
+                                                 t_pipeline.filter_ghost_tracklets, t_eval)
+    emit({"study": "identity_sequence", "frames": n_frames, **t_scores,
+          "port_post_passes_on_jax_raw_equal_jax": {
+              **{k: _same_tracklets(x_stages[k], j_stages[k]) for k in j_stages},
+              "crossing_log": x_log == j_log, "scores": x_scores == j_scores}})
+
+    j_keys = {_tracklet_key(t) for t in j_raw}
+    t_keys = {_tracklet_key(t) for t in t_raw}
+
+    def first_unmatched(tl, other):
+        odd = sorted((t for t in tl if _tracklet_key(t) not in other),
+                     key=lambda t: (t.frame_idxs[0], t.track_id))
+        return None if not odd else {"track_id": int(odd[0].track_id),
+                                     "first_frame": int(odd[0].frame_idxs[0]),
+                                     "frames": len(odd[0]), "of": len(odd)}
+
+    j_dig, t_dig = t_eval.decision_digests(jo), t_eval.decision_digests(to)
+    first = next((f for f in range(n_frames) if j_dig[f] != t_dig[f]), None)
+    k = next((i for i, (a, b) in enumerate(zip(j_log, t_log)) if a != b),
+             None if len(j_log) == len(t_log) else min(len(j_log), len(t_log)))
+    out = {"study": "identity_divergence",
+           "raw_tracklet_only_in_jax": first_unmatched(j_raw, t_keys),
+           "raw_tracklet_only_in_port": first_unmatched(t_raw, j_keys),
+           "first_crossing_log_entry_differing": None if k is None else {
+               "index": k, "jax": j_log[k] if k < len(j_log) else None,
+               "port": t_log[k] if k < len(t_log) else None},
+           "first_diverging_frame": first,
+           "als_iters_there": (None if first is None else
+                               {"jax": int(jo.als_iters[first]), "port": int(to.als_iters[first])})}
+    if first is not None:
+        jstep = jax.jit(j_tracker.make_step(jctx))
+        jstate = j_tracker.TrackerState.zeros(jcfg)
+        for f in range(first):
+            jstate, _ = jstep(jstate, (jnp.asarray(jb.kps[f]), jnp.asarray(jb.valid[f]),
+                                       jnp.asarray(japp[f])))
+        out["als_there_from_jax_state"] = _single_margins(
+            jctx, tctx, jstate, jb.kps[first], jb.valid[first], jcfg, japp[first])
+    emit(out)
+
+
 def wide_study(n_frames: int) -> None:
     from multiview_motion_capture_torch.config import PipelineConfig as TConfig
     from multiview_motion_capture_tpu.config import PipelineConfig as JConfig
@@ -659,13 +796,13 @@ def steps_study(scene: str, n_frames: int) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--study", choices=("shelf", "wide", "cold", "default", "appearance",
-                                        "steps"),
+                                        "identity", "steps"),
                     default="shelf")
     ap.add_argument("--scene", choices=("appearance", "default"), default="appearance",
                     help="the scene of --study steps")
     ap.add_argument("--frames", type=int, default=None,
                     help="frames of the scene (300 for shelf and default, 60 for wide, "
-                         "200 for appearance, 20 for steps)")
+                         "200 for appearance and identity, 20 for steps)")
     ap.add_argument("--draws", type=int, default=None,
                     help="perturbation draws (12 for shelf, 2 for cold)")
     args = ap.parse_args()
@@ -676,6 +813,9 @@ def main() -> None:
     jax.config.update("jax_platforms", "cpu")
     if args.study == "cold":
         cold_sensitivity_study((1, 2), args.draws or 2)
+        return
+    if args.study == "identity":
+        identity_study(args.frames or 200)
         return
     if args.study in ("default", "appearance"):
         preset_study(args.study, args.frames or (300 if args.study == "default" else 200))

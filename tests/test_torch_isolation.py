@@ -42,7 +42,8 @@ def test_port_modules_mirror_the_jax_package():
     for rel in ("config.py", "pose_def.py", "cameras.py", "data/ingest.py",
                 "data/synthetic.py", "ops/geometry.py", "ops/association.py",
                 "ops/als_kernel.py", "ops/triangulate.py", "ops/fk.py",
-                "ops/solve_kernel.py", "ops/ik.py", "tracker.py", "pipeline.py", "eval.py"):
+                "ops/solve_kernel.py", "ops/ik.py", "tracker.py", "pipeline.py", "eval.py",
+                "models/bone_prior.py", "reid.py", "crossings.py", "utils/checkpoint.py"):
         assert (PKG / rel).is_file(), rel
 
 
