@@ -35,6 +35,15 @@ each with the launch counters set to 0 just before it and read just after:
   scene in chunks of 50 frames (B1, B2), its tracklets bit-equal to the
   `identity` phase's final ones, again after a resume from chunk 1, with
   the resumed state loaded onto the card;
+- `detect`: the detection path from camera frames: a 60-frame, 4-person,
+  5-camera scene rendered at 192 x 256 and fed as uint8 through the
+  shipped bottom-up PoseNet and appearance head (`frames_to_frame_batch`),
+  then `pipeline.run(use_ik=True, app=, crossings=True)` (B1, B2); its
+  detection and identity quality against the JAX package's numbers for
+  that scene, detection frames/s and the kernels a frame;
+  `detect_parity` (the detector on the card against the CPU, bf16 and
+  f32) and `cascade` (the propose -> crop -> top-down cascade and the
+  top-down detector on its boxes against the JAX package's outputs);
 - `wide`: `pipeline.run` on `PipelineConfig.wide(64)` over a 60-frame,
   10-person, 64-camera scene (two camera clusters: kernel B3 batched ALS,
   B2), its quality and per-frame decisions against the JAX package's run
@@ -71,10 +80,11 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA's data sheet): HBM3 bytes/s and
-# f32 FLOP/s outside the tensor cores.
+# H100 SXM published peaks (NVIDIA's data sheet): HBM3 bytes/s, f32
+# FLOP/s outside the tensor cores, dense bf16 FLOP/s on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 # the slice's scene, and the default preset's (its 10 detection slots per
 # view pad the same people)
@@ -184,6 +194,114 @@ IDENTITY_REFERENCE = dict(
 # moves IDF1 by about 0.01
 IDF1_TOL = 0.01
 
+# the detect path: scripts/appearance_e2e_study.py's scene and tracker
+# (lines 83-145) from rendered frames fed as uint8, with the shipped
+# PoseNet and appearance head; its tracker config with the head's 32-dim
+# embeddings at the CLI's gain (__main__.py:333-347), IK on, crossings on
+CHECKPOINTS = REPO / "multiview_motion_capture_tpu" / "models" / "checkpoints"
+DETECT_SCENE = dict(n_frames=60, n_people=4, n_views=5, seed=1, noise_px=0.0, drop_prob=0.0,
+                    min_person_distance=1.2)
+DETECT_RENDER = dict(hw=(192, 256), world_scale=0.25, seed=2)
+DETECT_CFG = dict(n_views=5, max_people=8, max_tracks=12, max_frames=None, als_max_iter=100,
+                  ik_warm_stages=1, ik_solver="gj", track_rescue_px=0.0, appearance_dim=32,
+                  appearance_gain_px=60.0)
+DETECTOR = dict(max_people=8, full_hw=(192, 256), center_min_score=0.2, center_nms_window=5,
+                return_appearance=True)
+DETECT_MATCH_PX = 12.0
+DETECT_PARITY_FRAMES = 10
+CASCADE_FRAMES = 4
+CASCADE_CROP_HW = (128, 96)
+# what the detect phases hold: recall within 0.01 (12 of the scene's 1,200
+# people seen) and mean error within 0.1 px of the JAX package's; card
+# against CPU keypoints at the same center pixel, in f32 within
+# DETECT_F32_KPS_TOL_PX (measured against JAX's f32: 6e-5 px), in bf16
+# their 90th percentile within DETECT_BF16_KPS_P90_TOL_PX (JAX against the
+# port's CPU run: 0.028-0.044 px): bf16 rounding flips the decode's
+# discrete choices where two candidates lie within its noise (snap or
+# regress at snap_min, the snap window's start, a center between two
+# near-equal pixels), and a flip moves one keypoint by up to the snap
+# window and the regression's error (27.4 px on the 60 frames: a peak of
+# 0.14992 in JAX's map, 0.15037 in the port's), so the largest difference
+# is printed, not gated
+DETECT_RECALL_TOL = 0.01
+DETECT_ERR_TOL_PX = 0.1
+DETECT_F32_KPS_TOL_PX = 0.01
+DETECT_BF16_KPS_P90_TOL_PX = 0.25
+CASCADE_MEDIAN_TOL_PX = 0.5
+# JAX package on the CPU, the detect scene through its bottom-up detector
+# and pipeline.run (scripts/torch_parity_study.py --study detect,
+# "detect_reference"); valid_counts: the valid detections of each (frame,
+# view), frame-major
+DETECT_REFERENCE = dict(
+    recall=0.8866666666666667, precision=0.9568345323741008,
+    mean_err_px=2.9332361221313477, n_det=1112,
+    valid_counts=(
+        "444444444444444444444444444444444444444444444444444444444444444444444444444"
+        "444444444444444444444444444444444444444444444444444444444444444444444344444"
+        "445444444444443444434444344443343433534334343343433433334333343333433334333"
+        "343333433334333343333433334343343433334333343343433334434343333433434334343"),
+    cos_same=0.8114898204803467, cos_diff=-0.18523991107940674,
+    n_tracklets=6, top_lengths=[60, 60, 60, 51, 1, 1],
+    idf1=0.9745762711864406, id_switches=0, mpjpe_m=0.06572180788690916)
+# the same scene's first CASCADE_FRAMES frames through the JAX package's
+# make_multi_person_detector and make_detector + crops_to_frame_batch
+# (run_cascade; --study detect, "cascade_reference")
+CASCADE_REFERENCE = dict(
+    valid="44444444444444444444", crop_valid="44444444444444444444",
+    boxes=[
+        [16, 24], [132, 20], [140, 32], [36, 40], [36, 36], [80, 20], [160, 32], [0, 24],
+        [144, 24], [16, 24], [60, 20], [76, 44], [0, 28], [76, 20], [132, 32], [144, 20],
+        [44, 16], [160, 32], [140, 20], [28, 36], [132, 20], [140, 32], [16, 24], [40, 40],
+        [160, 32], [80, 20], [36, 36], [0, 24], [60, 16], [144, 24], [16, 24], [72, 44],
+        [0, 28], [144, 20], [72, 20], [136, 36], [160, 32], [44, 16], [140, 20], [28, 36],
+        [144, 32], [132, 20], [16, 24], [40, 40], [0, 24], [80, 20], [160, 32], [40, 36],
+        [60, 16], [144, 24], [12, 24], [68, 40], [140, 20], [72, 20], [0, 28], [136, 36],
+        [160, 32], [44, 16], [140, 20], [32, 36], [132, 20], [144, 32], [16, 24], [44, 40],
+        [40, 36], [0, 24], [76, 20], [160, 32], [60, 16], [144, 24], [12, 24], [64, 44],
+        [140, 20], [72, 16], [0, 28], [140, 32], [48, 16], [160, 32], [140, 20], [32, 36]],
+    mean_xy=[
+        [66.103, 86.988], [181.745, 86.068], [181.943, 89.614], [68.658, 90.75],
+        [111.825, 85.988], [128.458, 82.846], [226.802, 86.275], [45.08, 87.075],
+        [191.664, 86.34], [76.916, 85.499], [101.136, 82.374], [110.237, 85.156],
+        [26.298, 83.956], [123.784, 82.827], [193.244, 84.761], [191.096, 83.663],
+        [90.032, 81.865], [187.162, 86.543], [192.607, 85.084], [89.743, 81.953],
+        [179.081, 82.433], [180.345, 85.68], [66.358, 85.879], [68.453, 92.725],
+        [225.217, 86.05], [128.093, 82.533], [104.083, 86.739], [46.671, 85.975],
+        [103.853, 82.1], [191.102, 85.937], [81.017, 81.975], [109.847, 85.264],
+        [28.398, 83.569], [191.857, 86.809], [122.151, 82.693], [191.326, 88.756],
+        [187.964, 87.677], [90.366, 81.837], [190.25, 85.286], [90.834, 82.475],
+        [180.271, 83.624], [179.828, 82.83], [66.699, 85.155], [68.346, 89.707],
+        [57.03, 83.996], [127.743, 82.778], [230.024, 83.366], [121.278, 83.443],
+        [98.17, 82.007], [191.449, 85.99], [63.545, 86.415], [108.52, 87.829],
+        [190.451, 85.843], [121.037, 82.601], [28.057, 85.615], [190.199, 86.736],
+        [192.278, 87.737], [92.382, 81.925], [192.979, 86.444], [90.806, 82.691],
+        [182.101, 86.174], [182.152, 86.43], [65.273, 86.129], [69.662, 92.79],
+        [112.206, 84.601], [49.598, 86.276], [125.827, 82.977], [225.681, 89.616],
+        [102.451, 82.742], [190.685, 86.266], [67.532, 86.615], [108.407, 85.868],
+        [188.599, 83.383], [119.551, 82.333], [30.714, 83.255], [188.457, 83.958],
+        [93.666, 82.093], [192.25, 87.378], [193.776, 86.695], [93.8, 82.203]],
+    crop_mean_xy=[
+        [67.65, 87.549], [181.072, 82.54], [181.18, 84.315], [68.403, 92.206],
+        [86.51, 93.683], [114.764, 82.819], [230.006, 86.596], [49.833, 88.914],
+        [191.602, 83.668], [70.75, 85.245], [90.429, 84.704], [110.291, 85.29],
+        [26.666, 83.751], [122.94, 82.518], [185.05, 90.492], [189.802, 84.15],
+        [87.65, 81.41], [195.54, 88.889], [200.531, 86.481], [87.555, 86.671],
+        [183.067, 82.979], [183.375, 87.814], [66.711, 87.419], [65.799, 89.949],
+        [229.058, 87.051], [115.188, 82.98], [90.084, 93.875], [52.439, 87.487],
+        [91.568, 84.214], [190.296, 84.088], [72.947, 85.446], [110.396, 84.37],
+        [26.802, 83.207], [190.735, 82.288], [122.063, 82.357], [186.811, 91.067],
+        [197.708, 89.943], [88.902, 81.588], [198.15, 86.711], [87.984, 84.569],
+        [183.642, 85.574], [183.785, 82.551], [66.113, 87.34], [64.841, 90.435],
+        [48.009, 83.454], [117.061, 82.9], [227.75, 86.355], [94.22, 93.053],
+        [93.767, 83.328], [191.161, 85.907], [66.336, 85.18], [108.062, 86.854],
+        [187.848, 86.093], [120.517, 82.235], [29.127, 83.923], [186.067, 91.225],
+        [198.552, 90.129], [89.615, 81.929], [199.679, 87.303], [88.593, 87.664],
+        [184.949, 82.981], [183.191, 84.528], [66.074, 85.935], [63.661, 88.834],
+        [99.713, 94.316], [51.695, 83.931], [113.722, 82.694], [227.107, 86.345],
+        [95.723, 82.333], [190.641, 85.566], [65.396, 85.383], [106.62, 89.401],
+        [188.772, 83.228], [119.266, 81.914], [27.887, 85.116], [187.248, 88.163],
+        [90.392, 81.278], [198.462, 89.138], [198.498, 87.731], [90.866, 86.731]])
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -215,13 +333,11 @@ def cuda_time_ms(fn, reps: int, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20, attempts: int = 3) -> float:
-    """Mean device time per call of `fn`: the summed durations of the CUDA
-    kernels it launches, by torch.profiler, over `reps` calls after a warm
-    call.  Unlike CUDA events around back-to-back calls, it leaves out the
-    host's dispatch between the kernels.  A window in which the profiler
-    reports no kernel is traced again, up to `attempts` windows in all (a
-    machine's first window has come back empty)."""
+def kernel_events(fn, reps: int = 20, attempts: int = 3) -> list:
+    """The CUDA kernels that `reps` calls of `fn` launch, by torch.profiler,
+    after a warm call.  A window in which the profiler reports no kernel is
+    traced again, up to `attempts` windows in all (a machine's first window
+    has come back empty)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -235,8 +351,15 @@ def device_ms(fn, reps: int = 20, attempts: int = 3) -> float:
         kernels = [e for e in prof.events()
                    if str(getattr(e, "device_type", "")).endswith("CUDA")]
         if kernels:
-            return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+            return kernels
     raise RuntimeError(f"the profiler saw no kernel on the card in {attempts} windows")
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time per call of `fn`: the summed durations of the CUDA
+    kernels it launches.  Unlike CUDA events around back-to-back calls, it
+    leaves out the host's dispatch between the kernels."""
+    return sum(e.time_range.elapsed_us() for e in kernel_events(fn, reps)) / 1e3 / reps
 
 
 def host_time_ms(fn, rounds: int = 3, warm: bool = True) -> float:
@@ -635,6 +758,9 @@ def timed(fn, *args, **kwargs) -> dict:
 
 
 def phase_kernels(torch, dev, seq, cfg, dseq, dcfg, aseq, acfg, app):
+    from multiview_motion_capture_torch.config import PipelineConfig
+
+    detect_cfg = PipelineConfig(**DETECT_CFG)
     # B1's plain version is timed in three rounds in the main row's case and
     # once elsewhere: one call takes up to ~1.6 s (N = 66)
     als = [
@@ -658,10 +784,16 @@ def phase_kernels(torch, dev, seq, cfg, dseq, dcfg, aseq, acfg, app):
         timed(als_seeded_case, torch, dev, "appearance_seeded", 3, (16,) + (10,) * 10,
               n_people=16, rank=32, max_iter=acfg.als_max_iter,
               stable_iters=acfg.als_stable_iters, plain_rounds=1),
+        # the detect path: [12 track slots | 5 views x 8 detections], N = 52,
+        # rank 24, cap 100
+        timed(als_seeded_case, torch, dev, "detect_seeded", 4, (12,) + (8,) * 5,
+              n_people=12, rank=detect_cfg.als_max_rank, max_iter=detect_cfg.als_max_iter,
+              stable_iters=detect_cfg.als_stable_iters, plain_rounds=1),
     ]
-    # T = 8: SHELF_BENCH's slots; T = 16: the wide rig's; T = 64 off path
+    # T = 8: SHELF_BENCH's slots; T = 16: the wide rig's; T = 64 off path;
+    # T = 12: the detect path's
     gj = [timed(check_gj, torch, dev, T, 68, seed)
-          for T, seed in ((8, 0), (16, 4), (64, 1))]
+          for T, seed in ((8, 0), (16, 4), (64, 1), (12, 5))]
     als_batched = []
     for name, views, clusters in (("wide64_frame0", 64, 2), ("rig128_4clusters", 128, 4)):
         t0 = time.perf_counter()
@@ -680,7 +812,8 @@ def phase_kernels(torch, dev, seq, cfg, dseq, dcfg, aseq, acfg, app):
           "fused_normal_gj": fused, "gj_solve_grid": gj_grid, "als_ptxas": als_ptxas})
     if not all(r["ok"] for r in als + gj + als_batched + fused + gj_grid):
         raise AssertionError("a kernel disagrees with its plain version")
-    return dict(als=als[0], als_default=als[3], als_appearance=als[5], gj_solve=gj[0],
+    return dict(als=als[0], als_default=als[3], als_appearance=als[5], als_detect=als[7],
+                gj_solve=gj[0],
                 als_batched=als_batched[0], fused_normal_gj=fused[0], gj_solve_grid=gj_grid[0])
 
 
@@ -1221,6 +1354,453 @@ def phase_wide_fused(torch, dev, seq, cfg, gj_res):
     return launches
 
 
+def person_tints(n_people: int):
+    """Distinct stable clothing colours, spread over the hue circle
+    (scripts/appearance_e2e_study.py:93-100)."""
+    import numpy as np
+
+    hues = np.linspace(0, 1, n_people, endpoint=False)
+    return np.stack([1.0 + 0.5 * np.stack([np.cos(2 * np.pi * h),
+                                           np.cos(2 * np.pi * (h + 1 / 3)),
+                                           np.cos(2 * np.pi * (h + 2 / 3))])
+                     for h in hues]).astype(np.float32)
+
+
+def scaled_cameras(cams, scale: float):
+    """Calibration for frames rendered at `scale`: K' = diag(s, s, 1) K
+    (examples/e2e_fullframe.scaled_cameras on the port's CameraBank)."""
+    import numpy as np
+
+    from multiview_motion_capture_torch.cameras import CameraBank
+
+    K = np.asarray(cams.K, dtype=np.float64).copy()
+    K[:, :2, :] *= scale
+    wh = np.asarray(cams.img_wh, dtype=np.float64) * scale
+    return CameraBank.from_k_rt(K, np.asarray(cams.Rt, dtype=np.float64), wh)
+
+
+def to_uint8(frames):
+    import numpy as np
+
+    return np.round(frames * 255.0).astype(np.uint8)
+
+
+def detect_scene(n_frames: int = None):
+    """The detect path's scene: (sequence, tracker config, uint8 frames (F,
+    V, 192, 256, 3), cameras scaled to the frames)."""
+    from multiview_motion_capture_torch.config import PipelineConfig
+    from multiview_motion_capture_torch.data.detect_train import render_sequence
+    from multiview_motion_capture_torch.data.render import RenderConfig
+    from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
+
+    cfg = PipelineConfig(**DETECT_CFG)
+    scene = dict(DETECT_SCENE, n_frames=n_frames or DETECT_SCENE["n_frames"])
+    seq = synthetic_sequence(cfg=cfg, **scene)
+    frames = render_sequence(seq, RenderConfig(hw=DETECT_RENDER["hw"]),
+                             world_scale=DETECT_RENDER["world_scale"],
+                             seed=DETECT_RENDER["seed"],
+                             person_tints=person_tints(scene["n_people"]))
+    return seq, cfg, to_uint8(frames), scaled_cameras(seq.cameras, DETECT_RENDER["world_scale"])
+
+
+def label_detections(seq, batch, app):
+    """The person of each detection slot, by the nearest projected ground
+    truth within 40 px (the detector's slots are not the generator's), and
+    the embeddings' mean same- and different-person cosines
+    (scripts/appearance_e2e_study.py:200-226)."""
+    import numpy as np
+
+    ws = DETECT_RENDER["world_scale"]
+    F, V, P = batch.valid.shape
+    det_slot_person = np.full((F, V, P), -1, dtype=np.int32)
+    embs, labels = [], []
+    for f in range(F):
+        for v in range(V):
+            gt = seq.batch.kps[f, v][..., :2] * ws
+            slotp = seq.gt_slot_person[f, v]
+            for d in range(P):
+                if not batch.valid[f, v, d]:
+                    continue
+                errs = [np.nanmean(np.linalg.norm(batch.kps[f, v, d, :, :2] - gt[s], axis=-1))
+                        if slotp[s] >= 0 else 1e9 for s in range(gt.shape[0])]
+                s_best = int(np.argmin(errs))
+                if errs[s_best] < 40:
+                    det_slot_person[f, v, d] = int(slotp[s_best])
+                    embs.append(app[f, v, d])
+                    labels.append(int(slotp[s_best]))
+    embs = np.stack(embs)
+    labels = np.asarray(labels)
+    cos = embs @ embs.T
+    same = float(cos[labels[:, None] == labels[None, :]].mean())
+    diff = float(cos[labels[:, None] != labels[None, :]].mean())
+    return det_slot_person, (same, diff)
+
+
+def detect_quality(seq, batch, app, tracklets, evaluate_detections, identity_metrics,
+                   mpjpe_vs_ground_truth, joint_map) -> dict:
+    """What the detect path is judged by, with either package's functions:
+    detection recall / precision / mean error at DETECT_MATCH_PX against
+    the rendered ground truth, the valid detections of each (frame, view)
+    as a string of digits, tracklets, identity against the detections'
+    labels, MPJPE against gt_3d."""
+    import numpy as np
+
+    F, V, P, K = batch.kps.shape[:4]
+    ws = DETECT_RENDER["world_scale"]
+    det = evaluate_detections(batch.kps.reshape(F * V, P, K, 3), batch.valid.reshape(F * V, P),
+                              seq.batch.kps[..., :2].reshape(F * V, -1, K, 2) * ws,
+                              seq.batch.valid.reshape(F * V, -1), match_px=DETECT_MATCH_PX)
+    labels, (cos_same, cos_diff) = label_detections(seq, batch, app)
+    idm = identity_metrics(tracklets, labels)
+    lengths = sorted((len(t) for t in tracklets), reverse=True)
+    return {"recall": det["recall"], "precision": det["precision"],
+            "mean_err_px": det["mean_err_px"], "n_det": det["n_det"],
+            "valid_counts": "".join(str(int(n)) for n in batch.valid.sum(-1).reshape(-1)),
+            "cos_same": cos_same, "cos_diff": cos_diff,
+            "n_tracklets": len(tracklets), "top_lengths": lengths[:8],
+            "idf1": idm.idf1, "id_switches": idm.id_switches,
+            "mpjpe_m": mpjpe_vs_ground_truth(tracklets, seq.gt_3d, joint_map=joint_map)}
+
+
+def compare_detections(ref, got) -> dict:
+    """Two runs of a bottom-up detector over the same frames: `ref` and
+    `got` are lists over frames of numpy (kps (V, P, K, 3), centers (V, P,
+    3), valid (V, P)) in frame pixels.  Counts the (frame, view) images
+    whose valid masks are equal and whose center pixels are equal as sets
+    (a near-tie of two people's center scores reorders the slots), names
+    the first image whose centers differ, and pairs each valid detection
+    with the nearest center of the other run: the largest center shift,
+    and the keypoint differences of the pairs at the same center pixel
+    (largest, median, 90th and 99th percentiles, largest where both scores
+    exceed 0.1) and of the pairs whose centers moved (their offsets are
+    gathered at another pixel)."""
+    import numpy as np
+
+    n_img = n_valid_eq = n_centers_eq = 0
+    shift, same_px, moved, scored, first = 0.0, [], [0.0], [0.0], None
+    for f, (r, g) in enumerate(zip(ref, got)):
+        for v in range(r[2].shape[0]):
+            n_img += 1
+            rv, gv = r[2][v], g[2][v]
+            n_valid_eq += int(np.array_equal(rv, gv))
+            rc, gc = r[1][v][rv][:, :2], g[1][v][gv][:, :2]
+            same = sorted(map(tuple, rc.tolist())) == sorted(map(tuple, gc.tolist()))
+            n_centers_eq += int(same)
+            if not same and first is None:
+                first = {"frame": f, "view": v, "ref": r[1][v][rv].tolist(),
+                         "got": g[1][v][gv].tolist()}
+            if not len(rc) or not len(gc):
+                continue
+            for i, c in zip(np.nonzero(rv)[0], rc):
+                d = np.linalg.norm(gc - c, axis=1)
+                j = np.nonzero(gv)[0][int(np.argmin(d))]
+                shift = max(shift, float(d.min()))
+                a, b = r[0][v, i], g[0][v, j]
+                e = np.abs(a[:, :2] - b[:, :2]).max(-1)
+                if d.min() > 0:
+                    moved.append(float(e.max()))
+                    continue
+                same_px.append(e)
+                scored.append(float(e[(a[:, 2] > 0.1) & (b[:, 2] > 0.1)].max(initial=0.0)))
+    same_px = np.concatenate(same_px) if same_px else np.zeros(1)
+    return {"images": n_img, "valid_equal": n_valid_eq, "centers_equal": n_centers_eq,
+            "max_center_shift_px": shift, "first_centers_differ": first,
+            "max_kps_diff_px": float(same_px.max()),
+            "median_kps_diff_px": float(np.median(same_px)),
+            "p90_kps_diff_px": float(np.percentile(same_px, 90)),
+            "p99_kps_diff_px": float(np.percentile(same_px, 99)),
+            "max_scored_kps_diff_px": max(scored),
+            "moved_centers": len(moved) - 1, "max_kps_diff_moved_px": max(moved)}
+
+
+def run_cascade(detect_mod, mcfg, params, cfg, frames, host) -> dict:
+    """The two other detectors with either package's `data.detect` (`params`:
+    the flax tree or the port's PoseNet; `host`: its arrays to numpy): the
+    propose -> crop -> top-down cascade on uint8 `frames` (F, V, H, W, 3)
+    at CASCADE_CROP_HW, then the top-down `make_detector` with
+    `crops_to_frame_batch` on crops cut at the cascade's boxes.  Returns
+    what `compare_cascade` holds: the valid slots of each (frame, view) as
+    digits, and for each valid slot in (frame, view, slot) order its box
+    origin and mean keypoint (the 17 keypoints; of the top-down detector,
+    whose soft-argmax decodes every channel, the first 17)."""
+    import numpy as np
+
+    ch, cw = CASCADE_CROP_HW
+    cascade = detect_mod.make_multi_person_detector(mcfg, max_people=cfg.max_people,
+                                                    crop_hw=CASCADE_CROP_HW)
+    outs = [[host(a) for a in cascade(params, fr)] for fr in frames]
+    kps, boxes, valid = (np.stack([o[i] for o in outs]) for i in range(3))
+    F, V, P = valid.shape
+    crops = np.zeros((F, V, P, ch, cw, 3), dtype=np.float32)
+    for f, v, p in np.ndindex(F, V, P):
+        x0, y0 = boxes[f, v, p, :2].astype(int)
+        crops[f, v, p] = frames[f, v, y0:y0 + ch, x0:x0 + cw].astype(np.float32) / 255.0
+    top_down, _ = detect_mod.make_detector(mcfg, params)
+    fb = detect_mod.crops_to_frame_batch(top_down, params, crops, boxes, valid, cfg)
+    K = mcfg.n_kps
+
+    def digits(v):
+        return "".join(str(int(n)) for n in v.sum(-1).reshape(-1))
+
+    return {"valid": digits(valid), "boxes": boxes[valid][:, :2].astype(int).tolist(),
+            "mean_xy": np.round(kps[valid][:, :K, :2].mean(1), 3).tolist(),
+            "crop_valid": digits(fb.valid),
+            "crop_mean_xy": np.round(fb.kps[fb.valid][:, :K, :2].mean(1), 3).tolist()}
+
+
+def compare_cascade(got: dict, ref: dict) -> dict:
+    """`run_cascade`'s outputs against the reference's: valid slots equal
+    in every (frame, view); within each, slots paired by the nearest mean
+    keypoint (a near-tie of two proposals' scores reorders the slots); the
+    largest box-origin difference and the largest and median mean-keypoint
+    differences of the pairs."""
+    import numpy as np
+
+    out = {"valid_equal": got["valid"] == ref["valid"],
+           "crop_valid_equal": got["crop_valid"] == ref["crop_valid"]}
+    for name, counts, key in (("cascade", "valid", "mean_xy"),
+                              ("top_down", "crop_valid", "crop_mean_xy")):
+        if got[counts] != ref[counts]:
+            continue
+        box, xy, i = 0.0, [], 0
+        for n in map(int, ref[counts]):
+            r = np.asarray(ref[key][i:i + n], dtype=float)
+            g = np.asarray(got[key][i:i + n], dtype=float)
+            pair = i + np.asarray([int(np.argmin(np.linalg.norm(g - x, axis=1))) for x in r],
+                                  dtype=int)
+            xy.extend(np.abs(r - g[pair - i]).max(-1).tolist())
+            if name == "cascade":
+                box = max(box, float(np.abs(np.asarray(ref["boxes"][i:i + n])
+                                            - np.asarray(got["boxes"])[pair]).max(initial=0)))
+            i += n
+        out[name] = {"max_mean_xy_diff_px": max(xy, default=0.0),
+                     "median_mean_xy_diff_px": float(np.median(xy)) if xy else 0.0}
+        if name == "cascade":
+            out[name]["max_box_diff_px"] = box
+    return out
+
+
+def posenet_ops(cfg, h: int, w: int) -> float:
+    """Multiply-adds x 2 of one PoseNet forward on an h x w image."""
+    def down(n, s):
+        return -(-n // s)
+
+    h, w = down(h, 2), down(w, 2)
+    macs = h * w * 3 * cfg.stem_features * 49
+    h, w, cin = down(h, 2), down(w, 2), cfg.stem_features
+    for i, feats in enumerate(cfg.stage_features):
+        for b in range(cfg.blocks_per_stage):
+            s = 2 if i > 0 and b == 0 else 1
+            h, w = down(h, s), down(w, s)
+            macs += h * w * 9 * (cin * feats + feats * feats)
+            if s != 1 or cin != feats:
+                macs += h * w * cin * feats
+            cin = feats
+    for _ in range(2):      # each input pixel meets the 4 x 4 kernel
+        macs += h * w * 16 * cin * cfg.head_features
+        h, w, cin = 2 * h, 2 * w, cfg.head_features
+    macs += h * w * cin * cfg.n_out
+    return 2.0 * macs
+
+
+def count_kernels(fn, reps: int = 5):
+    """CUDA kernels a call of `fn` launches and their summed device ms."""
+    kernels = kernel_events(fn, reps)
+    return len(kernels) / reps, sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+
+
+def phase_detect(torch, dev):
+    """The detect path end to end on the card: the shipped bottom-up PoseNet
+    and appearance head over the scene's uint8 frames
+    (`frames_to_frame_batch`, twice: the second pass is timed), then
+    `pipeline.run(use_ik=True, app=, crossings=True)` (B1, B2).  Held
+    against the JAX package's run of the same scene and options
+    (DETECT_REFERENCE): the valid detections of every (frame, view) equal,
+    or the first that differs named; recall and mean error within
+    DETECT_RECALL_TOL / DETECT_ERR_TOL_PX; the final IDF1 within IDF1_TOL.
+    Also the forward's and the whole detector's kernels a frame, their
+    device time, the forward's bound, and the host syncs of one detector
+    call (none: the loop's one host read is `frames_to_frame_batch`'s)."""
+    import numpy as np
+
+    from multiview_motion_capture_torch import eval as ev
+    from multiview_motion_capture_torch import pipeline
+    from multiview_motion_capture_torch.data.detect import (
+        frames_to_frame_batch,
+        make_bottom_up_detector,
+        resize,
+    )
+    from multiview_motion_capture_torch.data.detect_train import evaluate_detections
+    from multiview_motion_capture_torch.models.checkpoint import (
+        load_appearance_head,
+        load_posenet,
+    )
+    from multiview_motion_capture_torch.pose_def import KpsFormat, common_kps_index
+
+    t0 = time.perf_counter()
+    seq, cfg, frames, cams = detect_scene()
+    render_s = time.perf_counter() - t0
+    mcfg, net = load_posenet(CHECKPOINTS / "posenet_synth.npz", device=dev)
+    _, head = load_appearance_head(CHECKPOINTS / "appearance_head.npz", device=dev)
+    detect = make_bottom_up_detector(mcfg, appearance_head=head, **DETECTOR)
+
+    zero_launch_counts()
+    batch, app = frames_to_frame_batch(detect, net, frames, cfg, collect_appearance=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch2, app2 = frames_to_frame_batch(detect, net, frames, cfg, collect_appearance=True)
+    detect_s = time.perf_counter() - t0
+    res = pipeline.run(batch, cams, cfg, use_ik=True, app=app, crossings=True, device=dev)
+    launches = launch_counts()
+
+    q = detect_quality(seq, batch, app, res.tracklets, evaluate_detections,
+                       ev.identity_metrics, ev.mpjpe_vs_ground_truth,
+                       common_kps_index(KpsFormat.BASIC_18, KpsFormat.COCO))
+    ref = DETECT_REFERENCE
+    first = next((i for i, (a, b) in enumerate(zip(q["valid_counts"], ref["valid_counts"]))
+                  if a != b), None)
+    V = cfg.n_views
+    one = torch.as_tensor(frames[0], device=dev)
+    fwd_in = resize(one.float() / 255.0, DETECTOR["full_hw"])
+    fwd_launches, fwd_ms = count_kernels(lambda: net(fwd_in))
+    det_launches, det_ms = count_kernels(lambda: detect(net, one))
+    _, det_syncs = count_syncs(lambda: detect(net, one))
+    n_params = sum(p.numel() for p in net.parameters())
+    ops = V * posenet_ops(mcfg, *DETECTOR["full_hw"])
+    # the frame read once (f32 after the uint8 conversion), the bf16
+    # weights once, the heat written once
+    fh, fw = DETECTOR["full_hw"]
+    n_bytes = V * fh * fw * 3 * 4 + n_params * 2 + V * (fh // 4) * (fw // 4) * mcfg.n_out * 4
+    fwd_bound_ms = max(n_bytes / PEAK_BYTES_PER_S, ops / PEAK_BF16_FLOPS) * 1e3
+    emit({"phase": "detect", "frames": len(frames), "views": V, "render_s": render_s,
+          "detect_fps": len(frames) / detect_s, "detect_s": detect_s,
+          "second_pass_equal_first": bool((batch.kps == batch2.kps).all()
+                                          and (batch.valid == batch2.valid).all()
+                                          and (app == app2).all()),
+          "track_fps": res.fps, "track_time_s": res.track_time_s, "timings": res.timings,
+          "forward_launches_per_frame": fwd_launches, "forward_device_ms_per_frame": fwd_ms,
+          "detect_launches_per_frame": det_launches, "detect_device_ms_per_frame": det_ms,
+          "decode_launches_per_frame": det_launches - fwd_launches,
+          "detect_host_syncs_per_frame": det_syncs,
+          "forward_gflop_per_frame": ops / 1e9, "forward_bound_ms": fwd_bound_ms,
+          "quality": q, "reference": ref,
+          "first_view_frame_counts_differ": (None if first is None else
+                                             {"frame": first // V, "view": first % V,
+                                              "card": q["valid_counts"][first],
+                                              "reference": ref["valid_counts"][first]}),
+          "view_frames_counts_equal": sum(a == b for a, b in
+                                          zip(q["valid_counts"], ref["valid_counts"])),
+          "recall_tol": DETECT_RECALL_TOL, "err_tol_px": DETECT_ERR_TOL_PX, "idf1_tol": IDF1_TOL,
+          "launches": launches})
+    if not (launches["als"] > 0 and launches["gj_solve"] > 0 and q["n_tracklets"] > 0
+            and all(np.isfinite(t.poses_3d).all() for t in res.tracklets)):
+        raise AssertionError("detect output or kernel launches missing")
+    if det_syncs:
+        raise AssertionError("the detector synchronises with the host")
+    if (abs(q["recall"] - ref["recall"]) > DETECT_RECALL_TOL
+            or abs(q["mean_err_px"] - ref["mean_err_px"]) > DETECT_ERR_TOL_PX
+            or abs(q["idf1"] - ref["idf1"]) > IDF1_TOL):
+        raise AssertionError("detect quality is off the JAX reference")
+    return launches, frames
+
+
+def phase_detect_parity(torch, dev, frames):
+    """The first DETECT_PARITY_FRAMES frames of the detect scene through the
+    bottom-up detector with the shipped weights on the card and on the CPU
+    (the port on both), in the checkpoint's bf16 compute and in f32.  f32:
+    valid masks and center pixels equal, keypoints within
+    DETECT_F32_KPS_TOL_PX (a layout or padding fault moves them by
+    pixels).  bf16 (cuDNN and the CPU round bf16 sums at other places):
+    valid masks equal, centers within one heatmap pixel, keypoints at equal
+    centers with their 90th percentile within DETECT_BF16_KPS_P90_TOL_PX;
+    and two card runs bit-equal.
+    The heat's largest difference is printed for both."""
+    import numpy as np
+
+    from multiview_motion_capture_torch.data.detect import make_bottom_up_detector, resize
+    from multiview_motion_capture_torch.models.checkpoint import (
+        load_appearance_head,
+        load_posenet,
+    )
+    from multiview_motion_capture_torch.models.pose_net import PoseNet
+
+    frames = frames[:DETECT_PARITY_FRAMES]
+    loaded = {}
+    for d in (dev, "cpu"):
+        mcfg, net = load_posenet(CHECKPOINTS / "posenet_synth.npz", device=d)
+        loaded[d] = net, load_appearance_head(CHECKPOINTS / "appearance_head.npz", device=d)[1]
+    out = {"phase": "detect_parity", "frames": len(frames),
+           "bf16_kps_p90_tol_px": DETECT_BF16_KPS_P90_TOL_PX,
+           "f32_kps_tol_px": DETECT_F32_KPS_TOL_PX}
+    ok = True
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        cfg = dataclasses.replace(mcfg, compute_dtype=dtype)
+        runs, heat = {}, {}
+        for d, (net, head) in loaded.items():
+            n = PoseNet(cfg).to(d).eval()
+            n.load_state_dict(net.state_dict())
+            det = make_bottom_up_detector(cfg, appearance_head=head, **DETECTOR)
+            runs[d] = [[a.cpu().numpy() for a in det(n, fr)] for fr in frames]
+            with torch.no_grad():
+                heat[d] = [n(resize(torch.as_tensor(fr, device=d).float() / 255.0,
+                                    DETECTOR["full_hw"])).cpu().numpy() for fr in frames]
+            if name == "bf16" and d == dev:
+                again = [[a.cpu().numpy() for a in det(n, fr)] for fr in frames]
+                out["card_runs_bit_equal"] = all(
+                    np.array_equal(a, b) for x, y in zip(runs[d], again) for a, b in zip(x, y))
+        cmp = compare_detections([r[:3] for r in runs["cpu"]], [r[:3] for r in runs[dev]])
+        K = mcfg.n_kps
+        diff = [np.abs(a - b) for a, b in zip(heat["cpu"], heat[dev])]
+        cmp["max_heat_diff_keypoint_center"] = float(max(d[..., :K + 1].max() for d in diff))
+        cmp["max_heat_diff_offsets"] = float(max(d[..., K + 1:].max() for d in diff))
+        # embeddings of the images whose detections came out in the same slots
+        same = [(a, b) for a, b in zip(runs["cpu"], runs[dev]) if np.array_equal(a[1], b[1])]
+        cmp["max_emb_diff_same_slots"] = float(max((np.abs(a[3] - b[3]).max() for a, b in same),
+                                                   default=0.0))
+        out[name] = cmp
+        every = cmp["valid_equal"] == cmp["images"]
+        if name == "f32":
+            ok &= (every and cmp["centers_equal"] == cmp["images"]
+                   and cmp["max_kps_diff_px"] <= DETECT_F32_KPS_TOL_PX)
+        else:
+            ok &= (every and cmp["max_center_shift_px"] <= 4.0
+                   and cmp["p90_kps_diff_px"] <= DETECT_BF16_KPS_P90_TOL_PX)
+    emit(out)
+    if not (ok and out["card_runs_bit_equal"]):
+        raise AssertionError("the detector on the card and on the CPU disagree")
+
+
+def phase_cascade(torch, dev, frames):
+    """The cascade (`make_multi_person_detector`, crop CASCADE_CROP_HW) and
+    the top-down detector (`make_detector` + `crops_to_frame_batch`) on its
+    boxes' crops, over the detect scene's first CASCADE_FRAMES frames on the
+    card, held against the JAX package's outputs (CASCADE_REFERENCE): valid
+    slots equal; box origins within one heatmap pixel of the proposal pass
+    (4 px); each detection's mean keypoint within DETECT_MATCH_PX (the
+    distance at which the detection scores count the same person) and the
+    median within CASCADE_MEDIAN_TOL_PX.  bf16 rounding flips the
+    peak-local decode's argmax between near-equal pixels, and a box moved
+    by a pixel of the proposal pass crops other pixels: single detections
+    move by pixels, the median by hundredths."""
+    from multiview_motion_capture_torch.config import PipelineConfig
+    from multiview_motion_capture_torch.data import detect
+    from multiview_motion_capture_torch.models.checkpoint import load_posenet
+
+    mcfg, net = load_posenet(CHECKPOINTS / "posenet_synth.npz", device=dev)
+    got = run_cascade(detect, mcfg, net, PipelineConfig(**DETECT_CFG),
+                      frames[:CASCADE_FRAMES], lambda a: a.cpu().numpy())
+    cmp = compare_cascade(got, CASCADE_REFERENCE)
+    emit({"phase": "cascade", "frames": CASCADE_FRAMES, "crop_hw": CASCADE_CROP_HW,
+          "detections": sum(map(int, got["valid"])), "vs_reference": cmp,
+          "median_tol_px": CASCADE_MEDIAN_TOL_PX, "max_tol_px": DETECT_MATCH_PX})
+    if not (cmp["valid_equal"] and cmp["crop_valid_equal"]
+            and cmp["cascade"]["max_box_diff_px"] <= 4.0
+            and all(cmp[k]["max_mean_xy_diff_px"] <= DETECT_MATCH_PX
+                    and cmp[k]["median_mean_xy_diff_px"] <= CASCADE_MEDIAN_TOL_PX
+                    for k in ("cascade", "top_down"))):
+        raise AssertionError("the cascade is off the JAX reference")
+
+
 def main() -> int:
     import torch
 
@@ -1270,6 +1850,9 @@ def main() -> int:
     final = run_phase("identity", phase_identity, aseq, app_tracklets)
     checkpoint_launches = run_phase("checkpoint", phase_checkpoint, torch, "cuda", aseq, acfg,
                                     app, final)
+    detect_launches, frames = run_phase("detect", phase_detect, torch, "cuda")
+    run_phase("detect_parity", phase_detect_parity, torch, "cuda", frames)
+    run_phase("cascade", phase_cascade, torch, "cuda", frames)
 
     wcfg = PipelineConfig.wide(WIDE_SCENE["n_views"], max_frames=None)
     wseq = synthetic_sequence(cfg=wcfg, **WIDE_SCENE)
@@ -1283,7 +1866,8 @@ def main() -> int:
 
     paths = {"slice": slice_launches, "default": default_launches, "no_ik": no_ik_launches,
              "stream": stream_launches, "appearance": app_launches,
-             "checkpoint": checkpoint_launches, "wide": wide_launches,
+             "checkpoint": checkpoint_launches, "detect": detect_launches,
+             "wide": wide_launches,
              "wide_fused": fused_launches}
 
     def row(kernel, replaces, r, library_ms):
@@ -1305,9 +1889,11 @@ def main() -> int:
 
     tpu = "multiview_motion_capture_tpu/ops/"
     als_row = row(cuda_lib.ALS, tpu + "als_pallas.py:130", checks["als"], None)
-    # B1 at the default preset's shape (N = 66, rank 32) and the appearance
-    # scene's (N = 116, rank 32, a cluster of 16), the same fields
-    for key, case in (("at_default_preset", "als_default"), ("at_appearance", "als_appearance")):
+    # B1 at the default preset's shape (N = 66, rank 32), the appearance
+    # scene's (N = 116, rank 32, a cluster of 16) and the detect path's (N =
+    # 52, rank 24), the same fields
+    for key, case in (("at_default_preset", "als_default"), ("at_appearance", "als_appearance"),
+                      ("at_detect", "als_detect")):
         als_row[key] = {k: checks[case][k] for k in (
             "case", "n", "rank", "iters_kernel", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "cluster", "ms_per_iter")}

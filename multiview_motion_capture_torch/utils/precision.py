@@ -26,18 +26,24 @@ WORK_DTYPE = torch.float64
 
 
 def high_precision() -> None:
-    """Pin full-f32 matmuls and convolutions (no TF32) process-wide."""
+    """Pin full-f32 matmuls and convolutions (no TF32) process-wide, and
+    cuDNN to one deterministic algorithm a convolution (no autotuning), so
+    two runs of the detector on the card give the same bits."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
 
 
 def precision_flags() -> dict:
-    """The three settings `high_precision` pins, as they stand now."""
+    """The settings `high_precision` pins, as they stand now."""
     return {
         "cuda_matmul_allow_tf32": bool(torch.backends.cuda.matmul.allow_tf32),
         "cudnn_allow_tf32": bool(torch.backends.cudnn.allow_tf32),
         "float32_matmul_precision": torch.get_float32_matmul_precision(),
+        "cudnn_benchmark": bool(torch.backends.cudnn.benchmark),
+        "cudnn_deterministic": bool(torch.backends.cudnn.deterministic),
     }
 
 

@@ -7,6 +7,7 @@
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study default [--frames 300]
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study appearance [--frames 200]
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study identity [--frames 200]
+    JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study detect [--frames 60]
     python scripts/torch_parity_study.py --study steps [--scene appearance] [--frames 20]
 
 The default study runs the synthetic scene of the port's smoke test
@@ -109,6 +110,31 @@ ground truth after each stage.  It prints:
   runs' ALS iterations there and that frame's ALS problem from the JAX
   run's state (iterations, binarized entries that differ, the smallest
   |X - 0.5|), as `--study appearance` prints it.
+
+`--study detect` runs the smoke test's `detect` scene (scripts/
+appearance_e2e_study.py's: synthetic_sequence(60 frames, 4 people, 5
+views, seed 1), rendered at 192 x 256 with hue-spread tints and fed as
+uint8) through the shipped bottom-up PoseNet and appearance head, then
+`pipeline.run(use_ik=True, app=, crossings=True)`, in both packages on
+the CPU, and prints:
+
+- "detect_reference": the JAX package's detection recall, precision and
+  mean error at 12 px, the valid detections of every (frame, view) as
+  digits, the embeddings' same / different-person cosines, tracklets, top
+  lengths, IDF1, ID switches and MPJPE: the constants `chip_smoke.py`'s
+  DETECT_REFERENCE holds;
+- "detect_sequence": the same numbers for the port, and the two detectors'
+  outputs frame by frame (`chip_smoke.compare_detections`): images whose
+  valid masks and center pixels are equal, the largest center shift and
+  keypoint differences, the first image whose centers differ; the largest
+  heat difference of the keypoint and center channels and of the offset
+  channels; the first (frame, view) whose valid detections differ with
+  both packages' top center-peak scores there;
+- "cascade_reference": the JAX package's `make_multi_person_detector` and
+  `make_detector` + `crops_to_frame_batch` on the scene's first 4 frames
+  (`chip_smoke.run_cascade`): the constants of CASCADE_REFERENCE;
+- "cascade_sequence": the port's, held against them
+  (`chip_smoke.compare_cascade`).
 
 `--study steps` holds the port on the card against the port on the CPU, on
 the `default` or `appearance` scene (`--scene`), frame by frame from one
@@ -589,6 +615,88 @@ def identity_study(n_frames: int) -> None:
     emit(out)
 
 
+def detect_study(n_frames: int) -> None:
+    from examples.e2e_fullframe import scaled_cameras as j_scaled_cameras
+    from multiview_motion_capture_torch.data import detect as t_detect
+    from multiview_motion_capture_torch.data.detect_train import (
+        evaluate_detections as t_evaluate,
+    )
+    from multiview_motion_capture_torch.models import checkpoint as t_ckpt
+    from multiview_motion_capture_torch.pose_def import KpsFormat as TKps
+    from multiview_motion_capture_torch.pose_def import common_kps_index as t_common
+    from multiview_motion_capture_tpu.config import PipelineConfig as JConfig
+    from multiview_motion_capture_tpu.data import detect as j_detect
+    from multiview_motion_capture_tpu.data.detect_train import evaluate_detections as j_evaluate
+    from multiview_motion_capture_tpu.data.detect_train import render_sequence as j_render
+    from multiview_motion_capture_tpu.data.render import RenderConfig as JRender
+    from multiview_motion_capture_tpu.models import checkpoint as j_ckpt
+    from multiview_motion_capture_tpu.models.pose_net import PoseNet as JPoseNet
+    from multiview_motion_capture_tpu.pose_def import KpsFormat as JKps
+    from multiview_motion_capture_tpu.pose_def import common_kps_index as j_common
+
+    ts, tcfg, frames, tcams = chip_smoke.detect_scene(n_frames)
+    jcfg = JConfig(**chip_smoke.DETECT_CFG)
+    scene = dict(chip_smoke.DETECT_SCENE, n_frames=n_frames)
+    js = j_synth(cfg=jcfg, **scene)
+    r = chip_smoke.DETECT_RENDER
+    jframes = j_render(js, JRender(hw=r["hw"]), world_scale=r["world_scale"], seed=r["seed"],
+                       person_tints=chip_smoke.person_tints(scene["n_people"]))
+    assert np.array_equal(chip_smoke.to_uint8(jframes), frames)
+    jcams = j_scaled_cameras(js.cameras, r["world_scale"])
+    ck = chip_smoke.CHECKPOINTS
+    jm, jparams = j_ckpt.load_posenet(ck / "posenet_synth.npz")
+    jhead = j_ckpt.load_appearance_head(ck / "appearance_head.npz")
+    tm, tnet = t_ckpt.load_posenet(ck / "posenet_synth.npz", device="cpu")
+    _, thead = t_ckpt.load_appearance_head(ck / "appearance_head.npz", device="cpu")
+    jdet = j_detect.make_bottom_up_detector(jm, appearance_head=jhead, **chip_smoke.DETECTOR)
+    tdet = t_detect.make_bottom_up_detector(tm, appearance_head=thead, **chip_smoke.DETECTOR)
+
+    jbatch, japp = j_detect.frames_to_frame_batch(jdet, jparams, frames, jcfg,
+                                                  collect_appearance=True)
+    jres = j_pipeline.run(jbatch, jcams, jcfg, use_ik=True, app=japp, crossings=True)
+    jq = chip_smoke.detect_quality(js, jbatch, japp, jres.tracklets, j_evaluate,
+                                   j_eval.identity_metrics, j_eval.mpjpe_vs_ground_truth,
+                                   j_common(JKps.BASIC_18, JKps.COCO))
+    emit({"study": "detect_reference", "frames": n_frames, **jq})
+
+    tbatch, tapp = t_detect.frames_to_frame_batch(tdet, tnet, frames, tcfg,
+                                                  collect_appearance=True)
+    tres = t_pipeline.run(tbatch, tcams, tcfg, use_ik=True, app=tapp, crossings=True,
+                          device="cpu")
+    tq = chip_smoke.detect_quality(ts, tbatch, tapp, tres.tracklets, t_evaluate,
+                                   t_eval.identity_metrics, t_eval.mpjpe_vs_ground_truth,
+                                   t_common(TKps.BASIC_18, TKps.COCO))
+    jraw, traw, heat_kc, heat_off = [], [], 0.0, 0.0
+    K = jm.n_kps
+    jnet = JPoseNet(jm)
+    for f in range(n_frames):
+        jraw.append([np.asarray(a) for a in jdet(jparams, frames[f])[:3]])
+        traw.append([a.numpy() for a in tdet(tnet, frames[f])[:3]])
+        x = frames[f].astype(np.float32) / 255.0
+        hj = np.asarray(jnet.apply({"params": jparams}, jnp.asarray(x)))
+        with torch.no_grad():
+            ht = tnet(torch.as_tensor(x)).numpy()
+        heat_kc = max(heat_kc, float(np.abs(hj[..., :K + 1] - ht[..., :K + 1]).max()))
+        heat_off = max(heat_off, float(np.abs(hj[..., K + 1:] - ht[..., K + 1:]).max()))
+    first = next((i for i, (a, b) in enumerate(zip(jq["valid_counts"], tq["valid_counts"]))
+                  if a != b), None)
+    there = None
+    if first is not None:
+        f, v = divmod(first, tcfg.n_views)
+        there = {"frame": f, "view": v, "jax_centers": jraw[f][1][v].tolist(),
+                 "port_centers": traw[f][1][v].tolist()}
+    emit({"study": "detect_sequence", "frames": n_frames, **tq,
+          "detections_vs_jax": chip_smoke.compare_detections(jraw, traw),
+          "max_heat_diff_keypoint_center": heat_kc, "max_heat_diff_offsets": heat_off,
+          "first_view_frame_counts_differ": there})
+
+    cf = frames[:chip_smoke.CASCADE_FRAMES]
+    jc = chip_smoke.run_cascade(j_detect, jm, jparams, jcfg, cf, np.asarray)
+    emit({"study": "cascade_reference", **jc})
+    tc = chip_smoke.run_cascade(t_detect, tm, tnet, tcfg, cf, lambda a: a.cpu().numpy())
+    emit({"study": "cascade_sequence", **chip_smoke.compare_cascade(tc, jc)})
+
+
 def wide_study(n_frames: int) -> None:
     from multiview_motion_capture_torch.config import PipelineConfig as TConfig
     from multiview_motion_capture_tpu.config import PipelineConfig as JConfig
@@ -796,13 +904,13 @@ def steps_study(scene: str, n_frames: int) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--study", choices=("shelf", "wide", "cold", "default", "appearance",
-                                        "identity", "steps"),
+                                        "identity", "detect", "steps"),
                     default="shelf")
     ap.add_argument("--scene", choices=("appearance", "default"), default="appearance",
                     help="the scene of --study steps")
     ap.add_argument("--frames", type=int, default=None,
-                    help="frames of the scene (300 for shelf and default, 60 for wide, "
-                         "200 for appearance and identity, 20 for steps)")
+                    help="frames of the scene (300 for shelf and default, 60 for wide "
+                         "and detect, 200 for appearance and identity, 20 for steps)")
     ap.add_argument("--draws", type=int, default=None,
                     help="perturbation draws (12 for shelf, 2 for cold)")
     args = ap.parse_args()
@@ -816,6 +924,9 @@ def main() -> None:
         return
     if args.study == "identity":
         identity_study(args.frames or 200)
+        return
+    if args.study == "detect":
+        detect_study(args.frames or chip_smoke.DETECT_SCENE["n_frames"])
         return
     if args.study in ("default", "appearance"):
         preset_study(args.study, args.frames or (300 if args.study == "default" else 200))

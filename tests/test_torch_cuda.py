@@ -329,3 +329,90 @@ def test_chol_lm_card_equals_cpu(cuda):
     assert [k.launches for k in cuda_lib.ALL_KERNELS] == before
     assert torch.isfinite(j_card).all()
     np.testing.assert_allclose(j_card.cpu().numpy(), j_cpu.numpy(), atol=1e-3)
+
+
+def _bottom_up_detector(dev, dtype=None):
+    """The shipped PoseNet and appearance head on `dev` with the detect
+    phase's bottom-up detector; `dtype` overrides the compute dtype."""
+    import dataclasses
+
+    import chip_smoke
+    from multiview_motion_capture_torch.data.detect import make_bottom_up_detector
+    from multiview_motion_capture_torch.models.checkpoint import (
+        load_appearance_head,
+        load_posenet,
+    )
+    from multiview_motion_capture_torch.models.pose_net import PoseNet
+
+    mcfg, net = load_posenet(chip_smoke.CHECKPOINTS / "posenet_synth.npz", device=dev)
+    _, head = load_appearance_head(chip_smoke.CHECKPOINTS / "appearance_head.npz", device=dev)
+    if dtype is not None:
+        mcfg = dataclasses.replace(mcfg, compute_dtype=dtype)
+        n = PoseNet(mcfg).to(dev).eval()
+        n.load_state_dict(net.state_dict())
+        net = n
+    return net, make_bottom_up_detector(mcfg, appearance_head=head, **chip_smoke.DETECTOR)
+
+
+def _detect_frames():
+    import chip_smoke
+
+    return chip_smoke.detect_scene(2)[2]            # (2, 5, 192, 256, 3) uint8
+
+
+def _run(detect, net, frames):
+    return [[a.cpu().numpy() for a in detect(net, fr)] for fr in frames]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_detector_card_equals_cpu(cuda, dtype):
+    """The bottom-up detector with the shipped weights on the card and the
+    CPU: valid masks equal; in f32 centers equal and keypoints within
+    chip_smoke.DETECT_F32_KPS_TOL_PX; in bf16 (cuDNN rounds its sums
+    elsewhere) centers within one heatmap pixel and the 90th percentile of
+    the keypoint differences at equal centers within the detect_parity
+    phase's bound."""
+    import chip_smoke
+
+    frames = _detect_frames()
+    dt = getattr(torch, dtype)
+    card = _run(*reversed(_bottom_up_detector(cuda, dt)), frames)
+    cpu = _run(*reversed(_bottom_up_detector("cpu", dt)), frames)
+    cmp = chip_smoke.compare_detections([r[:3] for r in cpu], [r[:3] for r in card])
+    assert cmp["valid_equal"] == cmp["images"], cmp
+    if dtype == "float32":
+        assert cmp["centers_equal"] == cmp["images"], cmp
+        assert cmp["max_kps_diff_px"] <= chip_smoke.DETECT_F32_KPS_TOL_PX, cmp
+    else:
+        assert cmp["max_center_shift_px"] <= 4.0, cmp
+        assert cmp["p90_kps_diff_px"] <= chip_smoke.DETECT_BF16_KPS_P90_TOL_PX, cmp
+
+
+def test_detector_card_runs_bit_equal_and_uint8_equals_f32(cuda):
+    """Two card runs give the same bits (cuDNN pinned to deterministic
+    algorithms, no autotuning), and uint8 frames the bits of the same
+    frames given as f32 (normalised as the detector does: times the f32
+    reciprocal of 255)."""
+    net, detect = _bottom_up_detector(cuda)
+    frames = _detect_frames()
+    a, b = _run(detect, net, frames), _run(detect, net, frames)
+    c = _run(detect, net, frames.astype(np.float32) * np.float32(1 / 255))
+    for x, y, z in zip(a, b, c):
+        for u, v, w in zip(x, y, z):
+            assert np.array_equal(u, v) and np.array_equal(u, w)
+
+
+def test_frames_to_frame_batch_on_card_equals_detector_calls(cuda):
+    """The prefetching loop (uploads on a side stream from pinned memory)
+    gives exactly the detector's own outputs, frame by frame."""
+    import chip_smoke
+    from multiview_motion_capture_torch.config import PipelineConfig
+    from multiview_motion_capture_torch.data.detect import frames_to_frame_batch
+
+    net, detect = _bottom_up_detector(cuda)
+    frames = _detect_frames()
+    batch, app = frames_to_frame_batch(detect, net, frames, PipelineConfig(**chip_smoke.DETECT_CFG),
+                                       collect_appearance=True)
+    for f, (kps, _, valid, emb) in enumerate(_run(detect, net, frames)):
+        assert np.array_equal(batch.kps[f], kps) and np.array_equal(batch.valid[f], valid)
+        assert np.array_equal(app[f], emb)

@@ -13,6 +13,7 @@ import multiview_motion_capture_torch as port
 from multiview_motion_capture_torch import pipeline, tracker
 from multiview_motion_capture_torch.config import SHELF_BENCH, PipelineConfig
 from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
+from multiview_motion_capture_torch.models import checkpoint as model_checkpoint
 from multiview_motion_capture_torch.ops import cuda_lib
 from multiview_motion_capture_torch.utils import precision
 
@@ -43,7 +44,9 @@ def test_port_modules_mirror_the_jax_package():
                 "data/synthetic.py", "ops/geometry.py", "ops/association.py",
                 "ops/als_kernel.py", "ops/triangulate.py", "ops/fk.py",
                 "ops/solve_kernel.py", "ops/ik.py", "tracker.py", "pipeline.py", "eval.py",
-                "models/bone_prior.py", "reid.py", "crossings.py", "utils/checkpoint.py"):
+                "models/bone_prior.py", "reid.py", "crossings.py", "utils/checkpoint.py",
+                "models/pose_net.py", "models/appearance_net.py", "models/checkpoint.py",
+                "data/detect.py", "data/render.py", "data/detect_train.py"):
         assert (PKG / rel).is_file(), rel
 
 
@@ -83,9 +86,16 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         tracker.from_numpy_state({})
     with pytest.raises(RuntimeError, match="device='cuda'"):
         port.MvTracker(seq.cameras, cfg)
+    ckpts = PKG.parent / "multiview_motion_capture_tpu" / "models" / "checkpoints"
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        model_checkpoint.load_posenet(ckpts / "posenet_synth.npz")
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        model_checkpoint.load_appearance_head(ckpts / "appearance_head.npz")
     # asking for the CPU works
     ctx = tracker.TrackerContext.build(seq.cameras, cfg, device="cpu")
     assert ctx.device.type == "cpu"
+    _, head = model_checkpoint.load_appearance_head(ckpts / "appearance_head.npz", device="cpu")
+    assert next(head.parameters()).device.type == "cpu"
 
 
 def test_unported_options_raise():
@@ -110,10 +120,13 @@ def test_unported_options_raise():
 def test_high_precision_pins_full_f32():
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.set_float32_matmul_precision("high")
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.deterministic = False
     precision.high_precision()
     assert precision.precision_flags() == {
         "cuda_matmul_allow_tf32": False, "cudnn_allow_tf32": False,
-        "float32_matmul_precision": "highest"}
+        "float32_matmul_precision": "highest", "cudnn_benchmark": False,
+        "cudnn_deterministic": True}
 
 
 def test_shelf_bench_preset():
