@@ -44,6 +44,17 @@ each with the launch counters set to 0 just before it and read just after:
   `detect_parity` (the detector on the card against the CPU, bf16 and
   f32) and `cascade` (the propose -> crop -> top-down cascade and the
   top-down detector on its boxes against the JAX package's outputs);
+- `train_parity`: the bottom-up PoseNet's training step at the shipped
+  width from the shipped weights, 5 AdamW steps on 8 generated samples,
+  card against the CPU (f32: losses and first-step gradients) and against
+  the JAX package's losses (f32 and bf16), two card runs bit-equal under
+  deterministic algorithms; `train`: a fresh PoseNet trained on the card in
+  bf16 (400 steps of batch 16, the training script's warmup-cosine AdamW),
+  steps/s, images/s, device ms, launches and idle share a step against the
+  step's bound, gated on the loss falling; `appearance_train`: the
+  appearance head's SupCon training on descriptors computed on the card,
+  its held-out cosine gap gated as tests/test_appearance.py gates the
+  shipped head and held near the JAX package's on the same data;
 - `wide`: `pipeline.run` on `PipelineConfig.wide(64)` over a 60-frame,
   10-person, 64-camera scene (two camera clusters: kernel B3 batched ALS,
   B2), its quality and per-frame decisions against the JAX package's run
@@ -301,6 +312,60 @@ CASCADE_REFERENCE = dict(
         [95.723, 82.333], [190.641, 85.566], [65.396, 85.383], [106.62, 89.401],
         [188.772, 83.228], [119.266, 81.914], [27.887, 85.116], [187.248, 88.163],
         [90.392, 81.278], [198.462, 89.138], [198.498, 87.731], [90.866, 86.731]])
+
+
+# the training phases.  train_parity: the shipped PoseNet (its config is
+# scripts/train_posenet.py:37-47, 192 x 256, stages (64, 128, 256), head
+# 128, center and offsets) from its checkpoint's weights, TRAIN_PARITY_STEPS
+# steps of detect_train.make_train_step with adamw(TRAIN_PARITY_LR) on the
+# 8 samples generate_samples makes of TRAIN_PARITY_SAMPLES, in f32 and
+# bf16 compute; TRAIN_REFERENCE: the JAX package's losses for the same
+# steps (scripts/torch_parity_study.py --study train, "train_reference")
+TRAIN_PARITY_SAMPLES = dict(seeds=[7], n_frames=2, n_views=4)
+TRAIN_PARITY_STEPS = 5
+TRAIN_PARITY_LR = 1e-4
+TRAIN_REFERENCE = dict(
+    float32=[0.007536318618804216, 0.005689698737114668, 0.004932283423841,
+             0.0040243566036224365, 0.003667108016088605],
+    bfloat16=[0.007532638963311911, 0.005735591985285282, 0.004957742523401976,
+              0.004071131814271212, 0.003667075652629137])
+# train: a fresh PoseNet (init_posenet, generator seeded 0) in bf16 for
+# TRAIN_STEPS steps of batch TRAIN_BATCH with scripts/train_posenet.py's
+# warmup-cosine AdamW at TRAIN_LR, on the samples of TRAIN_SEEDS (the
+# script's sample layout: 6 frames x 4 views a seed)
+TRAIN_SEEDS = [0, 1, 2, 3]
+TRAIN_BATCH = 16
+TRAIN_STEPS = 400
+TRAIN_LR = 1e-3
+TRAIN_PROFILE_STEPS = 10
+# appearance_train: scripts/train_appearance.py's settings on fewer scenes
+# (its 16 train scenes render for ~30 s), held out at seed + 100_003;
+# APPEARANCE_TRAIN_REFERENCE: the JAX package's gaps for the same seeds and
+# sizes (--study train, "appearance_train_reference"); the gates of
+# tests/test_appearance.py:407-408
+APPEARANCE_TRAIN = dict(seed=0, n_scenes=4, val_scenes=2, n_frames=6, iters=400, lr=1e-3,
+                        weight_decay=1e-4, tau=0.1)
+APPEARANCE_TRAIN_REFERENCE = dict(raw_gap=0.0366595983505249, gap=0.6452810764312744,
+                                  best_iter=100)
+APPEARANCE_GAP_MIN = 0.35
+APPEARANCE_GAP_OVER_RAW = 0.2
+# the head's initial weights alone move the best gap on these descriptors
+# by 0.039 in JAX (0.631-0.670 over PRNGKey 0-4) and 0.047 in the port
+# (0.634-0.681 over generator seeds 0-4; --study train)
+APPEARANCE_GAP_TOL = 0.05
+# card against the port's CPU run and against TRAIN_REFERENCE.  The
+# shipped weights fit these samples: the loss is a small residual of heat
+# values near 1, so the forward's f32 rounding shows amplified (the port's
+# CPU run against JAX's, --study train: losses 2.1e-5 to 6.6e-5 relative,
+# gradients within 0.0077 of each leaf's largest magnitude, cosines >=
+# 0.999998; in bf16 losses 6.1e-4 to 6.6e-3 relative)
+TRAIN_F32_LOSS_RTOL = 2e-4
+TRAIN_F32_GRAD_TOL = 0.05
+TRAIN_F32_GRAD_COS = 0.9999
+TRAIN_BF16_LOSS_RTOL = 2e-2
+# measured by this phase on an NVIDIA H100 80GB HBM3 (700 W): last-10 mean
+# 0.158 against the first 10's 1.600, a ratio of 0.099
+TRAIN_LOSS_GATE = 0.2
 
 
 def emit(obj) -> None:
@@ -1801,6 +1866,252 @@ def phase_cascade(torch, dev, frames):
         raise AssertionError("the cascade is off the JAX reference")
 
 
+# ---------------------------------------------------------------------------
+# training (no TPU kernel lies on it: convolutions and their gradients are
+# XLA's in JAX, cuDNN's here)
+# ---------------------------------------------------------------------------
+
+def script_module(name: str):
+    """A script of `scripts/` as a module (its functions, not its main)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_parity_samples(dev):
+    """The 8 samples of train_parity, targets computed on `dev`."""
+    from multiview_motion_capture_torch.data.detect_train import generate_samples
+    from multiview_motion_capture_torch.data.render import RenderConfig
+
+    kw = dict(TRAIN_PARITY_SAMPLES)
+    return generate_samples(kw.pop("seeds"), RenderConfig(hw=(192, 256)), device=dev, **kw)
+
+
+def train_parity_run(torch, dev, dtype, ss):
+    """TRAIN_PARITY_STEPS steps of the bottom-up step on `dev` in `dtype`
+    compute from the shipped checkpoint's weights, adamw(TRAIN_PARITY_LR),
+    on the samples `ss` -> (the losses, the first step's gradients by flax
+    leaf name in flax layout)."""
+    from multiview_motion_capture_torch.data.detect_train import make_train_step
+    from multiview_motion_capture_torch.models import checkpoint as ckpt
+    from multiview_motion_capture_torch.models.optim import AdamW
+    from multiview_motion_capture_torch.models.pose_net import PoseNet
+
+    _, shipped = ckpt.load_posenet(CHECKPOINTS / "posenet_synth.npz", device=dev)
+    cfg = dataclasses.replace(shipped.cfg, compute_dtype=dtype)
+    net = PoseNet(cfg).to(dev)
+    net.load_state_dict(shipped.state_dict())
+    step = make_train_step(cfg, net, AdamW(net.parameters(), TRAIN_PARITY_LR))
+    batch = [torch.as_tensor(a, device=dev) for a in (ss.images, ss.heat_tgt, ss.off_tgt,
+                                                       ss.off_mask)]
+    losses, grads = [], None
+    for i in range(TRAIN_PARITY_STEPS):
+        losses.append(step(*batch))
+        if i == 0:
+            grads = {ckpt.keystr(p): ckpt._to_flax(t.grad, kind)
+                     for p, t, kind in ckpt._posenet_leaves(net)}
+    return [float(x) for x in losses], grads
+
+
+def grad_agreement(ref: dict, got: dict) -> dict:
+    """Per-leaf gradient agreement: the largest difference over the leaf's
+    largest magnitude, and the cosine; the worst leaf of each."""
+    import numpy as np
+
+    rel, cos = {}, {}
+    for k, a in ref.items():
+        b = got[k]
+        rel[k] = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
+        a64, b64 = a.ravel().astype(np.float64), b.ravel().astype(np.float64)
+        cos[k] = float(a64 @ b64 / max(np.linalg.norm(a64) * np.linalg.norm(b64), 1e-30))
+    kr, kc = max(rel, key=rel.get), min(cos, key=cos.get)
+    return {"max_rel_err": rel[kr], "max_rel_err_leaf": kr, "min_cos": cos[kc],
+            "min_cos_leaf": kc}
+
+
+def rel_diffs(a, b) -> list:
+    return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+
+def phase_train_parity(torch, dev):
+    """The bottom-up PoseNet's training step at the shipped width on the
+    card: TRAIN_PARITY_STEPS steps from the shipped weights on 8 samples of
+    `generate_samples` (targets on the card, held against the CPU's).  f32
+    compute: the loss of every step within TRAIN_F32_LOSS_RTOL of the
+    port's CPU run and of TRAIN_REFERENCE, the first step's gradient of
+    every leaf within TRAIN_F32_GRAD_TOL of its largest magnitude and at a
+    cosine of at least TRAIN_F32_GRAD_COS against the CPU's.  bf16 compute (the shipped one): the losses within
+    TRAIN_BF16_LOSS_RTOL of TRAIN_REFERENCE.  Both run twice on the card
+    under torch.use_deterministic_algorithms(True): bit-equal."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    ss = train_parity_samples(dev)
+    cpu_ss = train_parity_samples("cpu")
+    render_s = time.perf_counter() - t0
+    tgt_diff = max(float(np.abs(getattr(ss, f) - getattr(cpu_ss, f)).max())
+                   for f in ("heat_tgt", "off_tgt", "off_mask"))
+    out = {"phase": "train_parity", "samples": int(ss.images.shape[0]),
+           "steps": TRAIN_PARITY_STEPS, "lr": TRAIN_PARITY_LR, "render_s": render_s,
+           "targets_card_vs_cpu_max_diff": tgt_diff,
+           "images_equal": bool(np.array_equal(ss.images, cpu_ss.images)),
+           "reference": TRAIN_REFERENCE, "f32_loss_rtol": TRAIN_F32_LOSS_RTOL,
+           "f32_grad_tol": TRAIN_F32_GRAD_TOL, "f32_grad_cos": TRAIN_F32_GRAD_COS,
+           "bf16_loss_rtol": TRAIN_BF16_LOSS_RTOL}
+    ok = out["images_equal"] and tgt_diff <= 1e-6
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            losses, grads = train_parity_run(torch, dev, dtype, ss)
+            again, grads2 = train_parity_run(torch, dev, dtype, ss)
+            ref = TRAIN_REFERENCE[name]
+            r = {"losses": losses, "vs_reference_rel": rel_diffs(losses, ref),
+                 "card_runs_bit_equal": losses == again and all(
+                     np.array_equal(grads[k], grads2[k]) for k in grads)}
+            tol = TRAIN_F32_LOSS_RTOL if name == "float32" else TRAIN_BF16_LOSS_RTOL
+            ok &= r["card_runs_bit_equal"] and max(r["vs_reference_rel"]) <= tol
+            if name == "float32":
+                torch.use_deterministic_algorithms(before)
+                cpu_losses, cpu_grads = train_parity_run(torch, "cpu", dtype, ss)
+                torch.use_deterministic_algorithms(True)
+                r["cpu_losses"] = cpu_losses
+                r["vs_cpu_rel"] = rel_diffs(losses, cpu_losses)
+                r["grads_vs_cpu"] = grad_agreement(cpu_grads, grads)
+                ok &= (max(r["vs_cpu_rel"]) <= TRAIN_F32_LOSS_RTOL
+                       and r["grads_vs_cpu"]["max_rel_err"] <= TRAIN_F32_GRAD_TOL
+                       and r["grads_vs_cpu"]["min_cos"] >= TRAIN_F32_GRAD_COS)
+            out[name] = r
+    finally:
+        torch.use_deterministic_algorithms(before)
+    emit(out)
+    if not ok:
+        raise AssertionError("the training step on the card is off the CPU's or JAX's")
+
+
+def train_step_bound(cfg, batch: int, n_params: int, sample_bytes: int):
+    """The least time of one bf16 training step: 3 x the forward's FLOPs
+    (forward, and the backward's two products) on the tensor cores, or the
+    batch read once and the f32 parameters, gradients and both moments each
+    read and written once."""
+    ops = 3 * batch * posenet_ops(cfg, *cfg.img_hw)
+    n_bytes = batch * sample_bytes + n_params * 4 * 2 * 4
+    return max(n_bytes / PEAK_BYTES_PER_S, ops / PEAK_BF16_FLOPS) * 1e3, ops, n_bytes
+
+
+def phase_train(torch, dev):
+    """A fresh PoseNet at the shipped width trained on the card in bf16:
+    TRAIN_STEPS steps of batch TRAIN_BATCH (indices from a generator on the
+    card) with scripts/train_posenet.py's warmup-cosine AdamW, on the
+    samples of TRAIN_SEEDS (targets computed on the card).  Steps/s and
+    images/s by the host clock around the synchronised loop; device ms and
+    launches a step, and the idle share, by torch.profiler over
+    TRAIN_PROFILE_STEPS more steps; the step's bf16 bound.  Gated on the
+    loss falling: the mean of the last 10 steps' losses below
+    TRAIN_LOSS_GATE x the first 10 steps'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multiview_motion_capture_torch.data.detect_train import generate_samples, make_train_step
+    from multiview_motion_capture_torch.data.render import RenderConfig
+    from multiview_motion_capture_torch.models.optim import AdamW, warmup_cosine_decay_schedule
+    from multiview_motion_capture_torch.models.pose_net import init_posenet
+
+    t0 = time.perf_counter()
+    ss = generate_samples(TRAIN_SEEDS, RenderConfig(hw=(192, 256)), n_people_range=(1, 5),
+                          device=dev)
+    data_s = time.perf_counter() - t0
+    cfg = script_module("torch_train_posenet").build_model_cfg()
+    net = init_posenet(cfg, torch.Generator().manual_seed(0)).to(dev)
+    sched = warmup_cosine_decay_schedule(0.0, TRAIN_LR, min(300, TRAIN_STEPS // 10),
+                                         TRAIN_STEPS, TRAIN_LR * 0.02)
+    step = make_train_step(cfg, net, AdamW(net.parameters(), sched))
+    data = [torch.as_tensor(a, device=dev) for a in (ss.images, ss.heat_tgt, ss.off_tgt,
+                                                      ss.off_mask)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    N = data[0].shape[0]
+
+    def one():
+        idx = torch.randint(0, N, (TRAIN_BATCH,), generator=gen, device=dev)
+        return step(*(d[idx] for d in data))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [one() for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = torch.stack(losses).cpu().tolist()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PROFILE_STEPS):
+            one()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    n_params = sum(p.numel() for p in net.parameters())
+    sample_bytes = sum(d[0].numel() * d.element_size() for d in data)
+    bound, ops, n_bytes = train_step_bound(cfg, TRAIN_BATCH, n_params, sample_bytes)
+    first = statistics.mean(losses[:10])
+    last = statistics.mean(losses[-10:])
+    dev_ms = busy_ms / TRAIN_PROFILE_STEPS if kernels else None
+    emit({"phase": "train", "samples": N, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+          "lr": TRAIN_LR, "data_s": data_s, "train_s": train_s,
+          "steps_per_s": TRAIN_STEPS / train_s, "images_per_s": TRAIN_STEPS * TRAIN_BATCH / train_s,
+          "profile_steps": TRAIN_PROFILE_STEPS, "wall_ms_per_step": prof_wall_ms
+          / TRAIN_PROFILE_STEPS,
+          "device_ms_per_step": dev_ms,
+          "launches_per_step": len(kernels) / TRAIN_PROFILE_STEPS if kernels else None,
+          "idle_share": 1.0 - busy_ms / prof_wall_ms if kernels else None,
+          "bound_ms": bound, "bound_gflop": ops / 1e9, "bound_mb": n_bytes / 1e6,
+          "params": n_params, "first_loss": losses[0], "last_loss": losses[-1],
+          "first10_mean": first, "last10_mean": last, "loss_gate": TRAIN_LOSS_GATE,
+          "losses_every_50": losses[::50]})
+    if not (kernels and all(math.isfinite(x) for x in losses) and last < TRAIN_LOSS_GATE * first):
+        raise AssertionError("the training loss did not fall")
+
+
+def appearance_train_run(torch, dev) -> dict:
+    """scripts/train_appearance.py's training on APPEARANCE_TRAIN's scenes,
+    descriptors on `dev`: the held-out raw gap, the best held-out gap of the
+    trained head and its iteration."""
+    from multiview_motion_capture_torch.data.appearance_train import descriptor_batch
+    from multiview_motion_capture_torch.models.appearance_net import cosine_gap
+
+    A = APPEARANCE_TRAIN
+    script = script_module("torch_train_appearance")
+    t0 = time.perf_counter()
+    embs, labels = descriptor_batch(seed=A["seed"], n_scenes=A["n_scenes"],
+                                    n_frames=A["n_frames"], device=dev)
+    ve, vl = descriptor_batch(seed=A["seed"] + script.VAL_SEED_OFFSET, n_scenes=A["val_scenes"],
+                              n_frames=A["n_frames"], device=dev)
+    render_s = time.perf_counter() - t0
+    s, d = cosine_gap(torch.as_tensor(ve), torch.as_tensor(vl))
+    t0 = time.perf_counter()
+    _, gap, best_it, loss = script.train_head(embs, labels, ve, vl, A["iters"], A["lr"],
+                                              A["weight_decay"], A["tau"], A["seed"], dev,
+                                              log=lambda m: None)
+    return {"n_train": int(len(labels)), "n_val": int(len(vl)), "raw_gap": float(s - d),
+            "gap": gap, "best_iter": best_it, "last_loss": loss, "render_s": render_s,
+            "train_s": time.perf_counter() - t0}
+
+
+def phase_appearance_train(torch, dev):
+    """The appearance head trained on the card (APPEARANCE_TRAIN): the
+    held-out gap above APPEARANCE_GAP_MIN and APPEARANCE_GAP_OVER_RAW above
+    the raw descriptors' (tests/test_appearance.py:407-408), and within
+    APPEARANCE_GAP_TOL of the JAX package's on the same data."""
+    r = appearance_train_run(torch, dev)
+    ref = APPEARANCE_TRAIN_REFERENCE
+    emit({"phase": "appearance_train", **APPEARANCE_TRAIN, **r, "reference": ref,
+          "gap_tol": APPEARANCE_GAP_TOL})
+    if not (r["gap"] > APPEARANCE_GAP_MIN and r["gap"] > r["raw_gap"] + APPEARANCE_GAP_OVER_RAW
+            and abs(r["gap"] - ref["gap"]) <= APPEARANCE_GAP_TOL):
+        raise AssertionError("the trained appearance head misses its gates")
+
+
 def main() -> int:
     import torch
 
@@ -1853,6 +2164,9 @@ def main() -> int:
     detect_launches, frames = run_phase("detect", phase_detect, torch, "cuda")
     run_phase("detect_parity", phase_detect_parity, torch, "cuda", frames)
     run_phase("cascade", phase_cascade, torch, "cuda", frames)
+    run_phase("train_parity", phase_train_parity, torch, "cuda")
+    run_phase("train", phase_train, torch, "cuda")
+    run_phase("appearance_train", phase_appearance_train, torch, "cuda")
 
     wcfg = PipelineConfig.wide(WIDE_SCENE["n_views"], max_frames=None)
     wseq = synthetic_sequence(cfg=wcfg, **WIDE_SCENE)

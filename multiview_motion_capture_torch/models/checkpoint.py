@@ -17,8 +17,14 @@ the other's files:
 `posenet_from_flax` and `head_from_flax` build the port's modules from a
 flax parameter tree given as nested dicts of numpy arrays.  The loaders
 put the module on `device` ("cuda" unless the caller asks for the CPU;
-without a GPU the default raises).  Not ported yet: the orbax
-`save_params` / `load_params` of the training side.
+without a GPU the default raises).
+
+`save_params` / `load_params` are the training side's parameter files in
+the JAX package's npz format: `<path>.npz`, a key per leaf as above, no
+config.  That is what the JAX package's `save_params` writes when orbax
+cannot be imported; with orbax it writes a StandardCheckpointer directory
+(tensorstore), which needs orbax to read, so `load_params` refuses one
+with an error that names the format.
 """
 from __future__ import annotations
 
@@ -179,3 +185,63 @@ def load_appearance_head(path: Path, device="cuda"):
         head = AppearanceHead(cfg)
         _fill(head, _head_leaves(head), lambda p: z[keystr(p)])
     return cfg, head.to(dev).eval()
+
+
+def _flat_params(params) -> dict:
+    """{keystr: numpy array}: a PoseNet's or AppearanceHead's leaves in
+    flax layout, or a nested dict's leaves as they are."""
+    if isinstance(params, PoseNet):
+        return {keystr(p): _to_flax(t, kind) for p, t, kind in _posenet_leaves(params)}
+    if isinstance(params, AppearanceHead):
+        return {keystr(p): _to_flax(t, kind) for p, t, kind in _head_leaves(params)}
+    out = {}
+
+    def walk(d, prefix):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                out[keystr(prefix + (k,))] = (v.detach().cpu().numpy()
+                                             if isinstance(v, torch.Tensor) else np.asarray(v))
+
+    walk(params, ())
+    return out
+
+
+def save_params(path: Path, params) -> None:
+    """Write `params` (a nested dict of tensors or arrays, or the port's
+    `PoseNet` / `AppearanceHead`, stored under flax's leaf names in flax
+    layout) to `<path>.npz`, the JAX package's npz parameter file."""
+    np.savez_compressed(str(path) + ".npz", **_flat_params(params))
+
+
+def load_params(path: Path, like):
+    """Read a `save_params` file of either package into the structure of
+    `like`: a `PoseNet` / `AppearanceHead` is filled in place and
+    returned; a nested dict gives a nested dict of tensors (the stored
+    dtype, on the device of `like`'s leaf where that is a tensor)."""
+    npz = Path(str(path) + ".npz")
+    if not npz.exists():
+        if Path(path).is_dir():
+            raise ValueError(
+                f"{path} is an orbax StandardCheckpointer directory (tensorstore), "
+                "which needs orbax to read; the port reads the npz format only "
+                "(the JAX package writes it when orbax cannot be imported)")
+        raise FileNotFoundError(npz)
+    with np.load(str(npz)) as z:
+        if isinstance(like, PoseNet):
+            return _fill(like, _posenet_leaves(like), lambda p: z[keystr(p)])
+        if isinstance(like, AppearanceHead):
+            return _fill(like, _head_leaves(like), lambda p: z[keystr(p)])
+
+        def build(d, prefix):
+            out = {}
+            for k, v in d.items():
+                if isinstance(v, dict):
+                    out[k] = build(v, prefix + (k,))
+                else:
+                    dev = v.device if isinstance(v, torch.Tensor) else "cpu"
+                    out[k] = torch.as_tensor(z[keystr(prefix + (k,))]).to(dev)
+            return out
+
+        return build(like, ())

@@ -25,13 +25,13 @@ flax's:
   bias, runs in f32.
 
 The parameters stay f32 (the checkpoint's values) and are cast at use, as
-flax casts them.  Convolutions are PyTorch's (cuDNN on the card): the JAX
-package runs them through XLA's `conv_general_dilated`, not a Pallas
-kernel.  The decoders are plain tensor code in both packages.
-
-Not ported yet: the training targets and losses (`offset_targets`,
-`offset_loss`, `center_targets`, `gaussian_heatmaps`, `heatmap_loss`,
-`create_train_state`, `train_step`).
+flax casts them, so their gradients are f32 too.  Convolutions are
+PyTorch's (cuDNN on the card), forward and backward: the JAX package runs
+them through XLA's `conv_general_dilated`, not a Pallas kernel.  The
+decoders, the training targets (`gaussian_heatmaps`, `center_targets`,
+`offset_targets`) and the losses are plain tensor code in both packages;
+`create_train_state` / `train_step` are the keypoint-only AdamW step
+(`models.optim.AdamW`: optax.adamw's hyper-parameters).
 """
 from __future__ import annotations
 
@@ -42,6 +42,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from multiview_motion_capture_torch.models.optim import AdamW
+from multiview_motion_capture_torch.utils.precision import high_precision, resolve_device
 
 GROUPS = 32
 GN_EPS = 1e-6  # flax.linen.GroupNorm's default (torch's is 1e-5)
@@ -174,9 +177,20 @@ class PoseNet(nn.Module):
         return heat
 
 
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax's LeCun-normal initialisation of `w` in place: a standard normal
+    truncated at two standard deviations, drawn as JAX draws it (a uniform
+    between the normal CDF's values at -2 and 2, through erfinv), scaled to
+    unit variance over `fan_in`.  Only `uniform_` reads `generator`, so a
+    seed gives the same weights under every torch release
+    (`nn.init.trunc_normal_` changed its sampler between releases)."""
+    lo, hi = (math.erf(x / math.sqrt(2.0)) for x in (-2.0, 2.0))
+    w.uniform_(lo, hi, generator=generator).erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    return w.mul_(math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+
+
 def init_posenet(cfg: PoseNetConfig, generator: torch.Generator) -> PoseNet:
-    """Random init as flax's: LeCun-normal kernels (a normal truncated at two
-    standard deviations, scaled to unit variance, over the fan-in), zero
+    """Random init as flax's: LeCun-normal kernels (`lecun_normal_`), zero
     biases, GroupNorm scale 1 and bias 0.  The numbers come from
     `generator`, so they are not JAX's for the same seed."""
     net = PoseNet(cfg)
@@ -186,9 +200,7 @@ def init_posenet(cfg: PoseNetConfig, generator: torch.Generator) -> PoseNet:
                 w = m.weight
                 # torch layouts: conv (out, in, kh, kw), transpose (in, out, kh, kw)
                 fan_in = w[0].numel() if isinstance(m, nn.Conv2d) else w[:, 0].numel()
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-                w.mul_(std)
+                lecun_normal_(w, fan_in, generator)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.GroupNorm):
@@ -350,3 +362,103 @@ def decode_bottom_up(heat: torch.Tensor, n_kps: int, max_people: int,
     kps = torch.cat([xy, score], dim=-1)
     kps = kps * valid[..., None, None].to(kps.dtype)
     return kps, centers, valid
+
+
+# ---------------------------------------------------------------------------
+# training: targets, losses and the keypoint-only step
+# ---------------------------------------------------------------------------
+
+def _pixel_grid(hw: Tuple[int, int], device):
+    H, W = hw
+    return (torch.arange(H, dtype=torch.float32, device=device),
+            torch.arange(W, dtype=torch.float32, device=device))
+
+
+def offset_targets(centers: torch.Tensor, kps: torch.Tensor, valid: torch.Tensor,
+                   kp_mask: torch.Tensor, hw: Tuple[int, int], radius: float = 2.0):
+    """Ground truth for the offset head: at every pixel within `radius` of a
+    person center, the (dx, dy) from that PIXEL to each of the person's
+    keypoints (the decode gathers at the detected, not the exact, center
+    pixel).
+
+    centers (B, P, 2), kps (B, P, K, 2) in heatmap px, valid (B, P),
+    kp_mask (B, P, K).  Overlapping discs: the nearest center wins, the
+    first person on ties (argmin's first index); invalid people are at
+    +inf, so a pixel of an image with no valid person belongs to person 0
+    and lies within no disc.  Returns (targets (B, H, W, 2K), mask (B, H,
+    W, K))."""
+    B, P, K, _ = kps.shape
+    ys, xs = _pixel_grid(hw, kps.device)
+    px = xs[None, None, :, None]
+    py = ys[None, :, None, None]
+    d2 = ((px - centers[:, None, None, :, 0]) ** 2
+          + (py - centers[:, None, None, :, 1]) ** 2)              # (B, H, W, P)
+    d2 = torch.where(valid[:, None, None, :], d2, math.inf)
+    min_d2, owner = d2.min(dim=-1)                                  # (B, H, W)
+    within = min_d2 <= radius ** 2
+    b = torch.arange(B, device=kps.device)[:, None, None]
+    kps_at = kps[b, owner]                                          # (B, H, W, K, 2)
+    mask_at = kp_mask[b, owner]                                     # (B, H, W, K)
+    tx = kps_at[..., 0] - xs[None, None, :, None]
+    ty = kps_at[..., 1] - ys[None, :, None, None]
+    tgt = torch.stack([tx, ty], dim=-1).reshape(B, *hw, 2 * K)
+    return tgt, mask_at * within[..., None]
+
+
+def offset_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked smooth-L1 over the offset field.  pred/target (B, H, W, 2K),
+    mask (B, H, W, K) (each keypoint's x and y share its mask entry)."""
+    B, H, W, C = pred.shape
+    d = (pred - target).reshape(B, H, W, C // 2, 2)
+    ad = d.abs()
+    l1 = torch.where(ad < 1.0, 0.5 * d * d, ad - 0.5).sum(-1)      # (B, H, W, K)
+    return (l1 * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def center_targets(centers: torch.Tensor, valid: torch.Tensor, hw: Tuple[int, int],
+                   sigma: float = 3.0) -> torch.Tensor:
+    """Ground-truth person-center heatmap: per-person gaussians combined by
+    max.  centers (B, P, 2) in heatmap pixels, valid (B, P) -> (B, H, W)."""
+    ys, xs = _pixel_grid(hw, centers.device)
+    cy = centers[:, None, None, :, 1]
+    cx = centers[:, None, None, :, 0]
+    g = torch.exp(-((ys[None, :, None, None] - cy) ** 2 + (xs[None, None, :, None] - cx) ** 2)
+                  / (2 * sigma ** 2))
+    return (g * valid[:, None, None, :].to(g.dtype)).amax(dim=-1)
+
+
+def gaussian_heatmaps(kps: torch.Tensor, hw: Tuple[int, int], sigma: float = 2.0) -> torch.Tensor:
+    """Render ground-truth gaussians: kps (B, K, 2) in heatmap pixels ->
+    (B, H, W, K)."""
+    ys, xs = _pixel_grid(hw, kps.device)
+    cy = kps[:, None, None, :, 1]
+    cx = kps[:, None, None, :, 0]
+    return torch.exp(-((ys[None, :, None, None] - cy) ** 2 + (xs[None, None, :, None] - cx) ** 2)
+                     / (2 * sigma ** 2))
+
+
+def heatmap_loss(pred: torch.Tensor, target: torch.Tensor, kp_mask: torch.Tensor) -> torch.Tensor:
+    """Masked MSE heatmap loss; kp_mask (B, K) zeroes invisible joints."""
+    return torch.mean((pred - target) ** 2 * kp_mask[:, None, None, :])
+
+
+def create_train_state(generator: torch.Generator, cfg: PoseNetConfig, lr: float = 1e-3,
+                       device="cuda"):
+    """A freshly initialised PoseNet on `device` (`init_posenet` from
+    `generator`) and its optimizer, optax.adamw(lr) -> (net, optimizer)."""
+    dev = resolve_device(device)
+    high_precision()
+    net = init_posenet(cfg, generator).to(dev)
+    return net, AdamW(net.parameters(), lr)
+
+
+def train_step(net: PoseNet, optimizer: torch.optim.Optimizer, images: torch.Tensor,
+               target_heat: torch.Tensor, kp_mask: torch.Tensor) -> torch.Tensor:
+    """One full supervised step of the keypoint heatmaps (loss, gradients,
+    the optimizer's update, in place); returns the loss before the
+    update."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = heatmap_loss(net(images), target_heat, kp_mask)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()

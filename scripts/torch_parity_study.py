@@ -8,6 +8,7 @@
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study appearance [--frames 200]
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study identity [--frames 200]
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study detect [--frames 60]
+    JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study train
     python scripts/torch_parity_study.py --study steps [--scene appearance] [--frames 20]
 
 The default study runs the synthetic scene of the port's smoke test
@@ -135,6 +136,28 @@ the CPU, and prints:
   (`chip_smoke.run_cascade`): the constants of CASCADE_REFERENCE;
 - "cascade_sequence": the port's, held against them
   (`chip_smoke.compare_cascade`).
+
+`--study train` computes the references of the smoke test's training
+phases on the CPU and prints:
+
+- "train_reference": the JAX package's losses for `train_parity`'s steps
+  (the shipped PoseNet from its checkpoint, TRAIN_PARITY_STEPS steps of
+  `make_train_step` with `optax.adamw(TRAIN_PARITY_LR)` on the 8 samples of
+  TRAIN_PARITY_SAMPLES), in f32 and bf16 compute: the constants
+  `chip_smoke.py`'s TRAIN_REFERENCE holds;
+- "train_port_cpu": the port's losses for the same steps on the CPU, their
+  relative differences from JAX's, and the first step's gradients against
+  JAX's (the largest difference over each leaf's largest magnitude, the
+  smallest cosine, with their leaves); whether the two packages' samples
+  are equal (images bit for bit, targets within 1e-6);
+- "appearance_train_reference": the JAX package's held-out raw gap, best
+  gap and its iteration for `appearance_train` (APPEARANCE_TRAIN, as
+  scripts/train_appearance.py trains): APPEARANCE_TRAIN_REFERENCE;
+- "appearance_train_port_cpu": the port's on the CPU (its head's initial
+  weights come from a torch.Generator, not JAX's);
+- "appearance_train_init_spread": the best gap of each package with the
+  head initialised from seeds 1-4 on the same descriptors: how far the
+  initial weights alone move it.
 
 `--study steps` holds the port on the card against the port on the CPU, on
 the `default` or `appearance` scene (`--scene`), frame by frame from one
@@ -697,6 +720,102 @@ def detect_study(n_frames: int) -> None:
     emit({"study": "cascade_sequence", **chip_smoke.compare_cascade(tc, jc)})
 
 
+def _jax_step_grads(cfg, params, batch):
+    """JAX's bottom-up step's loss and gradients, through its own
+    make_train_step with a transformation that keeps the gradient as its
+    state and updates nothing."""
+    import optax
+
+    from multiview_motion_capture_torch.models import checkpoint as t_ckpt
+    from multiview_motion_capture_tpu.data import detect_train as j_train
+
+    tx = optax.GradientTransformation(
+        lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
+        lambda g, s, p=None: (jax.tree_util.tree_map(jnp.zeros_like, g), g))
+    _, grads, _ = j_train.make_train_step(cfg, tx)(params, tx.init(params), *batch)
+    return {t_ckpt.keystr(tuple(k.key for k in path)): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(grads)[0]}
+
+
+def _jax_appearance_train(embs, labels, ve, vl, A, init_seed) -> dict:
+    """scripts/train_appearance.py's loop in the JAX package, the head
+    initialised from PRNGKey(init_seed)."""
+    import optax
+
+    from multiview_motion_capture_tpu.models import appearance_net as j_app_net
+
+    cfg = j_app_net.AppearanceHeadConfig(in_dim=embs.shape[-1])
+    params = j_app_net.init_head(jax.random.PRNGKey(init_seed), cfg)
+    tx = optax.adamw(A["lr"], weight_decay=A["weight_decay"])
+    opt = tx.init(params)
+    step = j_app_net.make_train_step(cfg, tx, tau=A["tau"])
+    e, lab, ve, vl = map(jnp.asarray, (embs, labels, ve, vl))
+    s, d = j_app_net.cosine_gap(ve, vl)
+    best, best_it = -1.0, 0
+    for i in range(A["iters"]):
+        params, opt, _ = step(params, opt, e, lab)
+        if (i + 1) % 25 == 0:
+            gs, gd = j_app_net.cosine_gap(j_app_net.apply_head(cfg, params, ve), vl)
+            if float(gs - gd) > best:
+                best, best_it = float(gs - gd), i + 1
+    return {"n_train": int(len(labels)), "n_val": int(len(vl)), "raw_gap": float(s - d),
+            "gap": best, "best_iter": best_it}
+
+
+def train_study() -> None:
+    import optax
+
+    from multiview_motion_capture_tpu.data import appearance_train as j_app
+    from multiview_motion_capture_tpu.data import detect_train as j_train
+    from multiview_motion_capture_tpu.data.render import RenderConfig as JRender
+    from multiview_motion_capture_tpu.models import checkpoint as j_ckpt
+
+    kw = dict(chip_smoke.TRAIN_PARITY_SAMPLES)
+    seeds = kw.pop("seeds")
+    js = j_train.generate_samples(seeds, JRender(hw=(192, 256)), **kw)
+    ts = chip_smoke.train_parity_samples("cpu")
+    same = bool(np.array_equal(js.images, ts.images) and all(
+        np.abs(getattr(js, f) - getattr(ts, f)).max() <= 1e-6
+        for f in ("heat_tgt", "off_tgt", "off_mask")))
+    batch = [jnp.asarray(a) for a in (ts.images, ts.heat_tgt, ts.off_tgt, ts.off_mask)]
+    jm, jparams = j_ckpt.load_posenet(chip_smoke.CHECKPOINTS / "posenet_synth.npz")
+    ref, port = {}, {}
+    for name in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(jm, compute_dtype=getattr(jnp, name))
+        tx = optax.adamw(chip_smoke.TRAIN_PARITY_LR)
+        step = j_train.make_train_step(cfg, tx)
+        p, o, losses = jparams, tx.init(jparams), []
+        for _ in range(chip_smoke.TRAIN_PARITY_STEPS):
+            p, o, loss = step(p, o, *batch)
+            losses.append(float(loss))
+        ref[name] = losses
+        tl, tg = chip_smoke.train_parity_run(torch, "cpu", getattr(torch, name), ts)
+        port[name] = {"losses": tl, "vs_jax_rel": chip_smoke.rel_diffs(tl, losses),
+                      "grads_vs_jax": chip_smoke.grad_agreement(
+                          _jax_step_grads(cfg, jparams, batch), tg)}
+    emit({"study": "train_reference", **ref})
+    emit({"study": "train_port_cpu", "samples_equal": same, **port})
+
+    A = chip_smoke.APPEARANCE_TRAIN
+    script = chip_smoke.script_module("torch_train_appearance")
+    embs, labels = j_app.descriptor_batch(seed=A["seed"], n_scenes=A["n_scenes"],
+                                          n_frames=A["n_frames"])
+    ve, vl = j_app.descriptor_batch(seed=A["seed"] + script.VAL_SEED_OFFSET,
+                                    n_scenes=A["val_scenes"], n_frames=A["n_frames"])
+    emit({"study": "appearance_train_reference",
+          **_jax_appearance_train(embs, labels, ve, vl, A, A["seed"])})
+    emit({"study": "appearance_train_port_cpu", **chip_smoke.appearance_train_run(torch, "cpu")})
+    # how far the best gap moves with the head's initial weights alone
+    te, tv = torch.as_tensor(embs), torch.as_tensor(ve)
+    spread = {"jax": [], "port": []}
+    for seed in range(1, 5):
+        spread["jax"].append(_jax_appearance_train(embs, labels, ve, vl, A, seed)["gap"])
+        spread["port"].append(script.train_head(
+            te, torch.as_tensor(labels), tv, torch.as_tensor(vl), A["iters"], A["lr"],
+            A["weight_decay"], A["tau"], seed, "cpu", log=lambda m: None)[1])
+    emit({"study": "appearance_train_init_spread", "init_seeds": [1, 2, 3, 4], **spread})
+
+
 def wide_study(n_frames: int) -> None:
     from multiview_motion_capture_torch.config import PipelineConfig as TConfig
     from multiview_motion_capture_tpu.config import PipelineConfig as JConfig
@@ -904,7 +1023,7 @@ def steps_study(scene: str, n_frames: int) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--study", choices=("shelf", "wide", "cold", "default", "appearance",
-                                        "identity", "detect", "steps"),
+                                        "identity", "detect", "train", "steps"),
                     default="shelf")
     ap.add_argument("--scene", choices=("appearance", "default"), default="appearance",
                     help="the scene of --study steps")
@@ -927,6 +1046,9 @@ def main() -> None:
         return
     if args.study == "detect":
         detect_study(args.frames or chip_smoke.DETECT_SCENE["n_frames"])
+        return
+    if args.study == "train":
+        train_study()
         return
     if args.study in ("default", "appearance"):
         preset_study(args.study, args.frames or (300 if args.study == "default" else 200))

@@ -416,3 +416,119 @@ def test_frames_to_frame_batch_on_card_equals_detector_calls(cuda):
     for f, (kps, _, valid, emb) in enumerate(_run(detect, net, frames)):
         assert np.array_equal(batch.kps[f], kps) and np.array_equal(batch.valid[f], valid)
         assert np.array_equal(app[f], emb)
+
+
+# ---------------------------------------------------------------------------
+# training.  f32: tests/test_torch_train.py's tolerances (losses 1e-5
+# relative, gradients 1e-4 of each leaf's largest magnitude).  bf16: cuDNN
+# and oneDNN round the bf16 sums at other places and three AdamW steps
+# from a random init carry the difference on: losses within 2e-2 relative
+# (chip_smoke.TRAIN_BF16_LOSS_RTOL; measured on the card 5.0e-3 and
+# 6.6e-3), first-step gradient cosines >= 0.95 (measured 0.986)
+# ---------------------------------------------------------------------------
+
+TRAIN_SMALL = dict(img_hw=(64, 48), stage_features=(64, 64, 128), blocks_per_stage=1,
+                   head_features=64, predict_center=True, predict_offsets=True)
+
+
+def _train_batch(seed=0, n=4):
+    from multiview_motion_capture_torch.models import pose_net as T
+
+    rng = np.random.RandomState(seed)
+    images = torch.as_tensor(rng.rand(n, 64, 48, 3).astype(np.float32))
+    centers = torch.as_tensor(rng.uniform(2, [10, 14], size=(n, 2, 2)).astype(np.float32))
+    kps = centers[:, :, None] + torch.as_tensor(rng.uniform(-3, 3, (n, 2, 17, 2)).astype(np.float32))
+    valid = torch.ones(n, 2, dtype=torch.bool)
+    jw = torch.ones(n, 2, 17)
+    kt = (T.gaussian_heatmaps(kps.reshape(n, 34, 2), (16, 12)).reshape(n, 16, 12, 2, 17)
+          .amax(dim=3))
+    ct = T.center_targets(centers, valid.float(), (16, 12), 1.5)
+    ot, om = T.offset_targets(centers, kps, valid, jw, (16, 12))
+    return images, torch.cat([kt, ct[..., None]], -1), ot, om
+
+
+def _train_run(dev, dtype, steps=3, seed=0):
+    """`steps` AdamW steps of the bottom-up step at the SMALL width from one
+    seeded init -> (losses, first-step gradients by leaf)."""
+    from multiview_motion_capture_torch.data.detect_train import make_train_step
+    from multiview_motion_capture_torch.models.optim import AdamW
+    from multiview_motion_capture_torch.models.pose_net import PoseNetConfig, init_posenet
+
+    cfg = PoseNetConfig(compute_dtype=dtype, **TRAIN_SMALL)
+    net = init_posenet(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    step = make_train_step(cfg, net, AdamW(net.parameters(), 1e-3))
+    batch = [t.to(dev) for t in _train_batch(seed)]
+    losses, grads = [], None
+    for i in range(steps):
+        losses.append(float(step(*batch)))
+        if i == 0:
+            grads = {n: p.grad.detach().cpu().numpy() for n, p in net.named_parameters()}
+    return losses, grads
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_card_equals_cpu(cuda, dtype):
+    import chip_smoke
+
+    dt = getattr(torch, dtype)
+    card, card_g = _train_run(cuda, dt)
+    cpu, cpu_g = _train_run("cpu", dt)
+    rel = max(chip_smoke.rel_diffs(card, cpu))
+    agree = chip_smoke.grad_agreement(cpu_g, card_g)
+    if dtype == "float32":
+        assert rel <= 1e-5 and agree["max_rel_err"] <= 1e-4, (rel, agree)
+    else:
+        assert rel <= 2e-2 and agree["min_cos"] >= 0.95, (rel, agree)
+
+
+def test_train_step_card_runs_bit_equal_deterministic(cuda):
+    """Two card runs of the step under torch.use_deterministic_algorithms
+    (cuDNN already pinned to deterministic algorithms): bit-equal losses and
+    gradients, in the shipped bf16 compute and in f32."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for dt in (torch.bfloat16, torch.float32):
+            (a, ga), (b, gb) = _train_run(cuda, dt), _train_run(cuda, dt)
+            assert a == b and all(np.array_equal(ga[k], gb[k]) for k in ga)
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def test_generate_samples_targets_card_equal_cpu(cuda):
+    from multiview_motion_capture_torch.data.detect_train import generate_samples
+    from multiview_motion_capture_torch.data.render import RenderConfig
+
+    for va in (False, True):
+        kw = dict(n_frames=2, n_views=3, n_people_range=(3, 5), visibility_aware=va)
+        card = generate_samples([5, 6], RenderConfig(hw=(96, 128)), device=cuda, **kw)
+        cpu = generate_samples([5, 6], RenderConfig(hw=(96, 128)), device="cpu", **kw)
+        assert np.array_equal(card.images, cpu.images) and np.array_equal(card.off_mask,
+                                                                            cpu.off_mask)
+        for f in ("heat_tgt", "off_tgt"):
+            np.testing.assert_allclose(getattr(card, f), getattr(cpu, f), atol=1e-6, rtol=0)
+
+
+def test_head_step_card_equals_cpu(cuda):
+    from multiview_motion_capture_torch.models.appearance_net import (
+        AppearanceHeadConfig,
+        init_head,
+        make_train_step,
+    )
+    from multiview_motion_capture_torch.models.optim import AdamW
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(40, 51).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    labels = np.repeat(np.arange(8), 5).astype(np.int32)
+    runs = []
+    for dev in (cuda, "cpu"):
+        head = init_head(torch.Generator().manual_seed(0), AppearanceHeadConfig(), device=dev)
+        step = make_train_step(head, AdamW(head.parameters(), 1e-3), tau=0.1)
+        e, lab = torch.as_tensor(x, device=dev), torch.as_tensor(labels, device=dev)
+        runs.append(([float(step(e, lab)) for _ in range(5)],
+                     [p.detach().cpu().numpy() for p in head.parameters()]))
+    (lc, pc), (lq, pq) = runs
+    np.testing.assert_allclose(lc, lq, rtol=1e-5)
+    for a, b in zip(pc, pq):
+        assert np.abs(a - b).max() <= 0.05 * 1e-3

@@ -46,7 +46,8 @@ def test_port_modules_mirror_the_jax_package():
                 "ops/solve_kernel.py", "ops/ik.py", "tracker.py", "pipeline.py", "eval.py",
                 "models/bone_prior.py", "reid.py", "crossings.py", "utils/checkpoint.py",
                 "models/pose_net.py", "models/appearance_net.py", "models/checkpoint.py",
-                "data/detect.py", "data/render.py", "data/detect_train.py"):
+                "data/detect.py", "data/render.py", "data/detect_train.py",
+                "data/appearance_train.py", "utils/testcache.py"):
         assert (PKG / rel).is_file(), rel
 
 
@@ -91,6 +92,21 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         model_checkpoint.load_posenet(ckpts / "posenet_synth.npz")
     with pytest.raises(RuntimeError, match="device='cuda'"):
         model_checkpoint.load_appearance_head(ckpts / "appearance_head.npz")
+    # the training side's entry points
+    from multiview_motion_capture_torch.data.appearance_train import descriptor_batch
+    from multiview_motion_capture_torch.data.detect_train import generate_samples
+    from multiview_motion_capture_torch.data.render import RenderConfig
+    from multiview_motion_capture_torch.models.appearance_net import init_head
+    from multiview_motion_capture_torch.models.pose_net import PoseNetConfig, create_train_state
+
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        generate_samples([0], RenderConfig(hw=(32, 48)), n_frames=1, n_views=1)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        descriptor_batch(0, n_scenes=1, n_frames=1, n_views=1)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        create_train_state(torch.Generator(), PoseNetConfig())
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        init_head(torch.Generator())
     # asking for the CPU works
     ctx = tracker.TrackerContext.build(seq.cameras, cfg, device="cpu")
     assert ctx.device.type == "cpu"
