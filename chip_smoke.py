@@ -55,14 +55,32 @@ each with the launch counters set to 0 just before it and read just after:
   appearance head's SupCon training on descriptors computed on the card,
   its held-out cosine gap gated as tests/test_appearance.py gates the
   shipped head and held near the JAX package's on the same data;
+- `cli`: the CLI as a user runs it (`python -m multiview_motion_capture_torch`,
+  child processes, on the card): the default preset's scene cut to 60
+  frames and written as calibration and OpenPose files, `prepare` (its npz
+  equal to `load_openpose_dir`), then `run --bvh --reid --crossings
+  --debug_dump` (B1 at N = 66, rank 32): its tracklets bit-equal to an
+  in-process `pipeline.run`, each BVH replayed by `fk_generic.animate_bvh`
+  on the card within 2 cm, the dump's x_bin at every dumped frame equal to
+  the step's association; `detect_cli`: the CLI's `detect` after its
+  image reading on 10 rendered frames, its tracklets bit-equal to the
+  library path's; `debug_clustered`: the association dump on an 8-view,
+  2-cluster rig (B3 in its replay, B1 with its X output per cluster)
+  against the same dump on the CPU; `alt`: `match_svt` and
+  `associate_frame` (B1) on the card against the CPU;
 - `wide`: `pipeline.run` on `PipelineConfig.wide(64)` over a 60-frame,
   10-person, 64-camera scene (two camera clusters: kernel B3 batched ALS,
   B2), its quality and per-frame decisions against the JAX package's run
   of that scene, `wide_fused` (the same with ik_solver="gj_fused": kernel
   B4), `wide_parity` (card vs CPU decisions) and `wide_profile`.
 
-Kernel times (`ms`, `plain_ms`, `library_ms`, `yardstick_ms`) are CUDA
-events around back-to-back calls.  The LM solves (B2, B4, B5), whose calls
+The kernel checks also launch B1 and B3 with their X output
+(`return_x=True`): X bit-equal to the plain version's, x_bin and the
+iterations those of the launch without it (`als_x`, and `x_max_abs_err`,
+`ms_with_x` on the two rows of the kernel table).
+
+Kernel times (`ms`, `ms_with_x`, `plain_ms`, `library_ms`, `yardstick_ms`)
+are CUDA events around back-to-back calls.  The LM solves (B2, B4, B5), whose calls
 take a few tens of microseconds, also print the device time of the same
 calls by torch.profiler (`device_ms`, `plain_device_ms`, ...): events
 around back-to-back wrapper calls that short measure the host's dispatch
@@ -368,6 +386,33 @@ TRAIN_BF16_LOSS_RTOL = 2e-2
 TRAIN_LOSS_GATE = 0.2
 
 
+# the CLI (`python -m multiview_motion_capture_torch`) on the default
+# preset's scene written out as calibration and OpenPose files, cut to
+# CLI_FRAMES frames: `prepare`, then `run --bvh --reid --crossings
+# --debug_dump` on the card (N = 66, rank 32); each exported BVH replayed
+# by `fk_generic.animate_bvh` within BVH_MEAN_ERR_M of its tracklet's
+# poses, the JAX package's own bound (tests/test_bvh.py:66-67: the file
+# holds one static skeleton, the mean of the tracklet's bone lengths)
+CLI_FRAMES = 60
+BVH_MEAN_ERR_M = 0.02
+# `detect` under the CLI (its image reading aside) on the detect scene's
+# first DETECT_CLI_FRAMES rendered frames, with --appearance --crossings
+DETECT_CLI_FRAMES = 10
+# the association dump on the clustered rig of tests/test_debug_dump.py:76
+# (8 views in 2 clusters, 2 people, seed 3), card against CPU: groups and
+# x_bin on the solved elements (live tracks, valid detections) equal, sims
+# within DEBUG_SIM_TOL, X on the solved elements within DEBUG_X_TOL (the
+# bound tests/test_torch_debug.py holds the port's X to against JAX's).
+# The replay's f64 math rounds its last bits on each device its own way,
+# and a value on an f32 rounding boundary then rounds two ways (ROADMAP
+# queue C), so a state field may differ by an ulp from some frame on
+# (the phase prints the first) and a similarity with it; the clusters' ALS
+# runs to its 100-iteration cap, where that moves X, and on the padded
+# slots (zero rows no decision reads) flips x_bin too.
+DEBUG_CLUSTERED_FRAMES = [0, 3, 6, 9]
+DEBUG_SIM_TOL = 1e-6
+DEBUG_X_TOL = 0.1
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -549,7 +594,10 @@ def phase_build():
 def check_als(torch, name, W, mask, init, max_iter, stable_iters, plain_rounds=3):
     """The ALS kernel against its plain version on the same inputs: both run
     the same f32 operations in the same order, so x_bin and the iteration
-    count must be equal."""
+    count must be equal.  With its X output (`return_x=True`, the TPU
+    kernel's continuous X) the kernel's X must equal the plain version's
+    bit for bit, and x_bin and the iteration count must be those of the
+    launch without it."""
     import numpy as np
 
     from multiview_motion_capture_torch.ops import als_kernel, association
@@ -558,21 +606,29 @@ def check_als(torch, name, W, mask, init, max_iter, stable_iters, plain_rounds=3
     kw = dict(alpha=50.0, beta=0.1, mu0=64.0, tol=1e-4, max_iter=max_iter,
               stable_iters=stable_iters)
     k = als_kernel.match_als(W, mask, init, **kw)
+    kx = als_kernel.match_als(W, mask, init, return_x=True, **kw)
     p = association.match_als(W, mask, init, **kw)
     torch.cuda.synchronize()
     xk, xp = k.x_bin.cpu().numpy(), p.x_bin.cpu().numpy()
     ik, ip = int(k.n_iters), int(p.n_iters)
     res = {"case": name, "n": n, "rank": rank, "iters_kernel": ik, "iters_plain": ip,
            "x_bin_mismatches": int((xk != xp).sum()),
-           "max_abs_err": float(np.abs(xk.astype(np.float32) - xp.astype(np.float32)).max())}
+           "max_abs_err": float(np.abs(xk.astype(np.float32) - xp.astype(np.float32)).max()),
+           "x_bit_equal": torch.equal(kx.x, p.x),
+           "x_max_abs_err": float((kx.x - p.x).abs().max()),
+           "return_x_same_x_bin_and_iters": (torch.equal(kx.x_bin, k.x_bin)
+                                             and int(kx.n_iters) == ik)}
     res["ms"] = cuda_time_ms(lambda: als_kernel.match_als(W, mask, init, **kw), reps=20)
+    res["ms_with_x"] = cuda_time_ms(
+        lambda: als_kernel.match_als(W, mask, init, return_x=True, **kw), reps=20)
     res.update(als_launch_fields(n, rank, 1, res["ms"], ik))
     res["plain_ms"] = host_time_ms(lambda: association.match_als(W, mask, init, **kw),
                                    rounds=plain_rounds, warm=False)
     # W f32 and the mask bytes read, init_A read, x_bin bytes and iters written
     n_bytes = n * n * 4 + n * n + n * rank * 4 + n * n + 4
     res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, als_ops(n, rank, ik))
-    res["ok"] = res["x_bin_mismatches"] == 0 and ik == ip
+    res["ok"] = (res["x_bin_mismatches"] == 0 and ik == ip and res["x_bit_equal"]
+                 and res["return_x_same_x_bin_and_iters"])
     return res
 
 
@@ -720,6 +776,7 @@ def check_als_batched(torch, name, W, mask, init, max_iter, stable_iters, timing
         return [als_kernel.match_als(W[c], mask, init, **kw) for c in range(C)]
 
     k = als_kernel.match_als_batched(W, mask, init, **kw)
+    kx = als_kernel.match_als_batched(W, mask, init, return_x=True, **kw)
     p, s1 = plain(), solos()
     torch.cuda.synchronize()
     xk = k.x_bin.cpu().numpy()
@@ -728,13 +785,21 @@ def check_als_batched(torch, name, W, mask, init, max_iter, stable_iters, timing
     ik = k.n_iters.cpu().tolist()
     ip = [int(r.n_iters) for r in p]
     i1 = [int(r.n_iters) for r in s1]
+    x_plain = torch.stack([r.x for r in p])
     res = {"case": name, "C": C, "n": n, "rank": rank, "iters_kernel": ik,
            "iters_plain": ip, "iters_solo_b1": i1,
            "x_bin_mismatches_plain": int((xk != xp).sum()),
            "x_bin_mismatches_solo_b1": int((xk != xs).sum()),
-           "max_abs_err": float(np.abs(xk.astype(np.float32) - xp.astype(np.float32)).max())}
+           "max_abs_err": float(np.abs(xk.astype(np.float32) - xp.astype(np.float32)).max()),
+           "x_bit_equal": torch.equal(kx.x, x_plain),
+           "x_max_abs_err": float((kx.x - x_plain).abs().max()),
+           "return_x_same_x_bin_and_iters": (torch.equal(kx.x_bin, k.x_bin)
+                                             and kx.n_iters.cpu().tolist() == ik)}
     res["ms"] = cuda_time_ms(lambda: als_kernel.match_als_batched(W, mask, init, **kw),
                              reps=timing_reps, rounds=3)
+    res["ms_with_x"] = cuda_time_ms(
+        lambda: als_kernel.match_als_batched(W, mask, init, return_x=True, **kw),
+        reps=timing_reps, rounds=3)
     res.update(als_launch_fields(n, rank, C, res["ms"], max(ik)))
     res["plain_ms"] = host_time_ms(plain, rounds=1, warm=False)
     # yardstick: the C problems as C sequential single-problem launches
@@ -744,7 +809,8 @@ def check_als_batched(torch, name, W, mask, init, max_iter, stable_iters, timing
     n_bytes = C * (n * n * 4 + n * n + 4) + n * n + n * rank * 4
     res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, sum(als_ops(n, rank, i) for i in ik))
     res["ok"] = (res["x_bin_mismatches_plain"] == 0 and res["x_bin_mismatches_solo_b1"] == 0
-                 and ik == ip == i1)
+                 and ik == ip == i1 and res["x_bit_equal"]
+                 and res["return_x_same_x_bin_and_iters"])
     return res
 
 
@@ -875,6 +941,13 @@ def phase_kernels(torch, dev, seq, cfg, dseq, dcfg, aseq, acfg, app):
                  if "registers" in ln or "smem" in ln or "spill" in ln]
     emit({"phase": "kernels", "als": als, "gj_solve": gj, "als_batched": als_batched,
           "fused_normal_gj": fused, "gj_solve_grid": gj_grid, "als_ptxas": als_ptxas})
+    # B1/B3 with their X output, case by case: X against the plain version's,
+    # x_bin and iterations against the launch without X, the time of each
+    emit({"phase": "als_x", "cases": [
+        {k: r.get(k) for k in ("case", "C", "n", "rank", "iters_kernel", "x_bit_equal",
+                               "x_max_abs_err", "return_x_same_x_bin_and_iters", "ms",
+                               "ms_with_x", "cluster", "threads", "smem_bytes")}
+        for r in als + als_batched], "als_ptxas": als_ptxas})
     if not all(r["ok"] for r in als + gj + als_batched + fused + gj_grid):
         raise AssertionError("a kernel disagrees with its plain version")
     return dict(als=als[0], als_default=als[3], als_appearance=als[5], als_detect=als[7],
@@ -1417,6 +1490,35 @@ def phase_wide_fused(torch, dev, seq, cfg, gj_res):
             and launches["fused_normal_gj"] > 0 and launches["als_batched"] > 0):
         raise AssertionError("wide_fused output or kernel launches missing")
     return launches
+
+
+def write_scene_files(seq, root: Path, n_frames: int):
+    """The first `n_frames` frames of a synthetic sequence as the CLI's
+    inputs: `root/calibs/camNN.json` ({"K", "RT", "imgSize"}, the
+    reference's calibration format) and `root/kps/camNN/` with one OpenPose
+    BODY_25 JSON file a frame (each valid detection a person, its COCO
+    keypoints at their BODY_25 places, the rest zero)."""
+    import numpy as np
+
+    from multiview_motion_capture_torch.pose_def import OPENPOSE25_TO_COCO
+
+    cams = seq.cameras
+    K, Rt, wh = (np.asarray(getattr(cams, f).cpu(), dtype=np.float64)
+                 for f in ("K", "Rt", "img_wh"))
+    (root / "calibs").mkdir(parents=True)
+    for v in range(len(K)):
+        (root / "calibs" / f"cam{v:02d}.json").write_text(json.dumps(
+            {"K": K[v].ravel().tolist(), "RT": Rt[v].ravel().tolist(),
+             "imgSize": wh[v].tolist()}))
+        d = root / "kps" / f"cam{v:02d}"
+        d.mkdir(parents=True)
+        for f in range(n_frames):
+            people = []
+            for p in np.nonzero(seq.batch.valid[f, v])[0]:
+                body25 = np.zeros((25, 3), dtype=np.float32)
+                body25[OPENPOSE25_TO_COCO] = seq.batch.kps[f, v, p]
+                people.append({"pose_keypoints_2d": body25.ravel().tolist()})
+            (d / f"{v}_{f:012d}_keypoints.json").write_text(json.dumps({"people": people}))
 
 
 def person_tints(n_people: int):
@@ -2112,6 +2214,335 @@ def phase_appearance_train(torch, dev):
         raise AssertionError("the trained appearance head misses its gates")
 
 
+def cli_subprocess(args, timeout=900):
+    """`python -m multiview_motion_capture_torch ARGS` in a child process
+    from the root of the checkout (runpy runs the package's `__main__` as
+    `-m` does), then its kernels' launch counts: (exit code, stdout lines,
+    stderr, launches, wall seconds)."""
+    code = ("import json, runpy, sys\n"
+            "from multiview_motion_capture_torch.ops import cuda_lib\n"
+            f"sys.argv = ['multiview_motion_capture_torch'] + {list(args)!r}\n"
+            "try:\n"
+            "    runpy.run_module('multiview_motion_capture_torch', run_name='__main__',"
+            " alter_sys=True)\n"
+            "except SystemExit as e:\n"
+            "    if e.code:\n"
+            "        raise\n"
+            "print('LAUNCHES ' + json.dumps({k.name: k.launches\n"
+            "                                 for k in cuda_lib.ALL_KERNELS}))\n")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    lines = r.stdout.splitlines()
+    launches = next((json.loads(ln[len("LAUNCHES "):]) for ln in lines
+                     if ln.startswith("LAUNCHES ")), None)
+    return r.returncode, [ln for ln in lines if not ln.startswith("LAUNCHES ")], r.stderr, \
+        launches, wall
+
+
+@contextlib.contextmanager
+def recording_associate():
+    """Keep each frame's association matrix (x_bin) of the tracker steps run
+    inside the block, in call order."""
+    from multiview_motion_capture_torch import tracker
+
+    associate, calls = tracker.associate, []
+
+    def recording(*args, **kwargs):
+        a = associate(*args, **kwargs)
+        calls.append(a.x_bin)
+        return a
+
+    tracker.associate = recording
+    try:
+        yield calls
+    finally:
+        tracker.associate = associate
+
+
+def tracklets_equal(a, b) -> bool:
+    """Two tracklet lists equal field by field, bit for bit."""
+    import numpy as np
+
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if x.track_id != y.track_id or list(x.frame_idxs) != list(y.frame_idxs):
+            return False
+        for f in ("roots", "eulers", "side_lens", "poses_3d", "poses_score", "matched_pose",
+                  "app"):
+            u, v = getattr(x, f), getattr(y, f)
+            if (u is None) != (v is None) or (u is not None and not np.array_equal(u, v)):
+                return False
+    return True
+
+
+def cli_args(**kw):
+    """The CLI's common flags at their defaults, as `_config` reads them."""
+    import argparse
+
+    base = dict(max_frames=300, max_people=10, max_tracks=16, min_track_len=1,
+                preset="default")
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def phase_cli(torch, dev, seq):
+    """The CLI as a user runs it, on the card (no --cpu): the default
+    preset's scene cut to CLI_FRAMES frames, written as calibration and
+    OpenPose files; `prepare` (its npz equal to `load_openpose_dir`), then
+    `run --frames_npz --bvh --reid --crossings --debug_dump` (B1 at N = 66,
+    rank 32; the dump's replay and its B1 solves with X).  Held: the
+    tracklets pickle bit-equal to an in-process `pipeline.run(reid=True,
+    crossings=True)` of the same files, each BVH replayed on the card by
+    `fk_generic.animate_bvh` within BVH_MEAN_ERR_M of its tracklet, and
+    the dump's x_bin at each dumped frame equal to the association matrix
+    the in-process run's step used at that frame."""
+    import tempfile
+
+    import numpy as np
+
+    from multiview_motion_capture_torch import __main__ as cli
+    from multiview_motion_capture_torch import pipeline
+    from multiview_motion_capture_torch.cameras import CameraBank
+    from multiview_motion_capture_torch.data.ingest import load_frame_batch, load_openpose_dir
+    from multiview_motion_capture_torch.ops.fk_generic import animate_bvh
+    from multiview_motion_capture_torch.utils.bvh import read_bvh
+
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        root = Path(tmp)
+        write_scene_files(seq, root, CLI_FRAMES)
+        t0 = time.perf_counter()
+        prep = subprocess.run(
+            [sys.executable, "-m", "multiview_motion_capture_torch", "prepare",
+             "--kps_dir", str(root / "kps"), "--out", str(root / "frames.npz"),
+             "--max_frames", str(CLI_FRAMES)],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        prepare_s = time.perf_counter() - t0
+        if prep.returncode != 0:
+            raise AssertionError(f"prepare failed:\n{prep.stderr[-3000:]}")
+        code, lines, err, launches, run_s = cli_subprocess(
+            ["run", "--frames_npz", str(root / "frames.npz"), "--calib_dir",
+             str(root / "calibs"), "--out_dir", str(root / "out"), "--bvh", "--reid",
+             "--crossings", "--debug_dump", str(root / "dbg"), "--max_frames",
+             str(CLI_FRAMES)])
+        if code != 0:
+            raise AssertionError(f"run failed:\n{err[-3000:]}")
+        line = json.loads(lines[-1])
+
+        cfg = cli._config(cli_args(max_frames=CLI_FRAMES), n_views=seq.batch.n_views)
+        cams = CameraBank.from_json_dir(root / "calibs")
+        batch = load_openpose_dir(root / "kps", cfg, max_frames=CLI_FRAMES)
+        npz = load_frame_batch(root / "frames.npz")
+        prepare_equal = (np.array_equal(npz.kps, batch.kps)
+                         and np.array_equal(npz.valid, batch.valid))
+        with recording_associate() as steps:
+            res = pipeline.run(batch, cams, cfg, reid=True, crossings=True, device=dev)
+        steps = [x.cpu().numpy() for x in steps[-res.n_frames:]]   # the timed pass
+        got = pipeline.load_tracklets(root / "out" / "tracklets.pkl")
+        same = tracklets_equal(got, res.tracklets)
+
+        bvh_err = {}
+        for t in got:
+            data = read_bvh(root / "out" / f"track_{t.track_id:03d}.bvh")
+            pos = animate_bvh(data, device=dev).cpu().numpy() / 100.0   # cm -> m
+            bvh_err[t.track_id] = float(np.linalg.norm(pos - t.poses_3d, axis=-1).mean())
+        dumped = sorted((root / "dbg").glob("frame_*.npz"))
+        dump_equal = {}
+        for p in dumped:
+            f = int(p.stem.split("_")[1])
+            with np.load(p) as d:
+                dump_equal[f] = bool(np.array_equal(d["x_bin"], steps[f]))
+                has_x = "x" in d.files and "margin" in d.files
+    out = {"phase": "cli", "frames": CLI_FRAMES, "cli_line": line, "prepare_s": prepare_s,
+           "run_s": run_s, "prepare_equal_load_openpose_dir": prepare_equal,
+           "tracklets_equal_in_process": same, "in_process_fps": res.fps,
+           "bvh_mean_err_m": bvh_err, "bvh_tol_m": BVH_MEAN_ERR_M,
+           "dumped_frames": sorted(dump_equal), "dump_x_bin_equal_step": dump_equal,
+           "launches": launches}
+    emit(out)
+    if not (prepare_equal and same and line["n_tracklets"] == len(got) > 0):
+        raise AssertionError("the CLI's outputs differ from the library's")
+    if not (bvh_err and max(bvh_err.values()) < BVH_MEAN_ERR_M):
+        raise AssertionError("an exported BVH does not replay its tracklet")
+    if not (dump_equal and all(dump_equal.values()) and has_x):
+        raise AssertionError("the debug dump misses the step's association")
+    if not launches["als"] > 0:
+        raise AssertionError("the CLI run launched no ALS kernel")
+    return launches
+
+
+def phase_detect_cli(torch, dev, frames):
+    """`detect` under the CLI (`__main__.detect_frames`, the CLI's code
+    after its cv2 image reading) on the card with --appearance --crossings,
+    on the detect scene's first DETECT_CLI_FRAMES frames as the CLI reads
+    them (f32 RGB in [0, 1]); its tracklets bit-equal to the library path
+    the `detect` phase drives (`frames_to_frame_batch` + `pipeline.run`) on
+    the same frames and the CLI's config."""
+    import dataclasses as dc
+    import tempfile
+
+    import numpy as np
+
+    from multiview_motion_capture_torch import __main__ as cli
+    from multiview_motion_capture_torch import pipeline
+    from multiview_motion_capture_torch.config import PipelineConfig
+    from multiview_motion_capture_torch.data.detect import (
+        frames_to_frame_batch,
+        make_bottom_up_detector,
+    )
+    from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
+    from multiview_motion_capture_torch.models.checkpoint import (
+        load_appearance_head,
+        load_posenet,
+    )
+
+    seq = synthetic_sequence(cfg=PipelineConfig(**DETECT_CFG), **DETECT_SCENE)
+    cams = scaled_cameras(seq.cameras, DETECT_RENDER["world_scale"])
+    images = frames[:DETECT_CLI_FRAMES].astype(np.float32) / 255.0
+    cfg = cli._config(cli_args(), n_views=cams.n_views)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        zero_launch_counts()
+        line = cli.detect_frames(images, cams, cfg, Path(tmp), appearance=True,
+                                 crossings=True, device=dev)
+        launches = launch_counts()
+        got = pipeline.load_tracklets(Path(tmp) / "tracklets.pkl")
+
+    mcfg, net = load_posenet(CHECKPOINTS / "posenet_synth.npz", device=dev)
+    _, head = load_appearance_head(CHECKPOINTS / "appearance_head.npz", device=dev)
+    detect = make_bottom_up_detector(mcfg, max_people=cfg.max_people,
+                                     center_nms_window=cfg.detect_nms_window,
+                                     return_appearance=True, appearance_head=head)
+    batch, app = frames_to_frame_batch(detect, net, images, cfg, collect_appearance=True)
+    rcfg = dc.replace(cfg, appearance_dim=app.shape[-1], appearance_gain_px=60.0)
+    ref = pipeline.run(batch, cams, rcfg, use_ik=True, app=app, crossings=True, device=dev)
+    same = tracklets_equal(got, ref.tracklets)
+    emit({"phase": "detect_cli", "frames": DETECT_CLI_FRAMES, "cli_line": line,
+          "tracklets_equal_library": same,
+          "top_lengths": sorted((len(t) for t in got), reverse=True)[:8],
+          "launches": launches})
+    if not (same and got and launches["als"] > 0):
+        raise AssertionError("the CLI's detect differs from the library path")
+    return launches
+
+
+def phase_debug_clustered(torch, dev):
+    """`debug.dump_association_debug` on the clustered rig of
+    tests/test_debug_dump.py:76 (8 views, 2 clusters): on the card its
+    replay launches B3 and its frames B1 with X, one call per cluster;
+    held against the same dump with device="cpu": the files, the groups
+    and x_bin on the solved elements equal, sims within DEBUG_SIM_TOL, X
+    on the solved elements within DEBUG_X_TOL."""
+    import tempfile
+
+    import numpy as np
+
+    from multiview_motion_capture_torch import tracker
+    from multiview_motion_capture_torch.config import PipelineConfig
+    from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
+    from multiview_motion_capture_torch.debug import dump_association_debug, replay_states
+
+    cfg = PipelineConfig(n_views=8, max_people=4, max_tracks=6, als_max_iter=100,
+                         assoc_clusters=2)
+    seq = synthetic_sequence(n_frames=10, n_people=2, n_views=8, cfg=cfg, seed=3,
+                             drop_prob=0.15)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        dumps = {}
+        for d in (dev, "cpu"):
+            ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=d)
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            paths = dump_association_debug(ctx, seq.batch.kps, seq.batch.valid,
+                                           Path(tmp) / d, frames=DEBUG_CLUSTERED_FRAMES)
+            wall = time.perf_counter() - t0
+            if d == dev:
+                launches, card_s = launch_counts(), wall
+            dumps[d] = [dict(np.load(p)) for p in paths]
+            names = sorted(p.name for p in (Path(tmp) / d).iterdir())
+            dumps[d + "_files"] = names
+            dumps[d + "_states"] = replay_states(ctx, seq.batch.kps, seq.batch.valid)[0]
+    # where the two replays' states part, if they do
+    state_diff = {}
+    for fld in dataclasses.fields(dumps[dev + "_states"]):
+        a = np.asarray(getattr(dumps[dev + "_states"], fld.name), dtype=np.float64)
+        b = np.asarray(getattr(dumps["cpu_states"], fld.name), dtype=np.float64)
+        bad = np.nonzero((a != b).reshape(a.shape[0], -1).any(1))[0]
+        if len(bad):
+            state_diff[fld.name] = {"first_frame": int(bad[0]),
+                                    "max_abs_diff": float(np.abs(a - b).max())}
+    files_equal = dumps[dev + "_files"] == dumps["cpu_files"]
+    T, P = cfg.max_tracks, cfg.max_people
+    diff = {"x_bin_equal": True, "x_bin_solved_equal": True, "groups_equal": True,
+            "sim_max_diff": 0.0, "x_solved_max_diff": 0.0, "x_max_diff": 0.0}
+    for a, b in zip(dumps[dev], dumps["cpu"]):
+        files_equal &= sorted(a) == sorted(b)
+        ev = a["elem_valid"]
+        solved = ev[:, None] & ev[None, :]
+        diff["x_bin_equal"] &= bool(np.array_equal(a["x_bin"], b["x_bin"]))
+        diff["x_bin_solved_equal"] &= bool(np.array_equal(a["x_bin"][solved],
+                                                          b["x_bin"][solved]))
+        diff["groups_equal"] &= all(np.array_equal(a[k], b[k])
+                                    for k in ("rep", "member", "group_size", "elem_valid"))
+        for c in range(cfg.assoc_clusters):
+            # the cluster's solved elements: live tracks and its views' detections
+            vm = np.concatenate([ev[:T]] + [ev[T + v * P:T + (v + 1) * P]
+                                            for v in a[f"cluster{c}_views"]])
+            dx = np.abs(a[f"cluster{c}_x"] - b[f"cluster{c}_x"])
+            diff["sim_max_diff"] = max(diff["sim_max_diff"], float(
+                np.abs(a[f"cluster{c}_sim"] - b[f"cluster{c}_sim"]).max()))
+            diff["x_solved_max_diff"] = max(diff["x_solved_max_diff"],
+                                            float(dx[vm[:, None] & vm[None, :]].max()))
+            diff["x_max_diff"] = max(diff["x_max_diff"], float(dx.max()))
+    emit({"phase": "debug_clustered", "frames": DEBUG_CLUSTERED_FRAMES,
+          "files_equal": files_equal, **diff, "sim_tol": DEBUG_SIM_TOL, "x_tol": DEBUG_X_TOL,
+          "replay_state_diff": state_diff, "card_s": card_s, "launches": launches})
+    if not (files_equal and diff["x_bin_solved_equal"] and diff["groups_equal"]
+            and diff["sim_max_diff"] <= DEBUG_SIM_TOL
+            and diff["x_solved_max_diff"] <= DEBUG_X_TOL):
+        raise AssertionError("the card's association dump differs from the CPU's")
+    if not (launches["als_batched"] > 0 and launches["als"] > 0):
+        raise AssertionError("the clustered dump did not launch B3 and B1")
+    return launches
+
+
+def phase_alt(torch, dev, seq, cfg):
+    """The side solvers on the card against the CPU: `match_svt` (its SVD
+    cuSOLVER's on the card, LAPACK's on the CPU) on two seeded problems,
+    x_bin and iterations equal; `associate_frame` (B1) on the default
+    scene's first frames, groups equal."""
+    import numpy as np
+
+    from multiview_motion_capture_torch.data.ingest import filter_bad_poses
+    from multiview_motion_capture_torch.ops import association, association_alt
+
+    svt = []
+    for name, seed, sizes, people in (("shelf_layout", 0, (8, 6, 6, 6, 6, 6), 8),
+                                      ("default_layout", 2, (16,) + (10,) * 5, 16)):
+        W = als_problem(seed, sizes, people)
+        mask = association.block_diag_mask(sizes)
+        r = {}
+        for d in (dev, "cpu"):
+            t0 = time.perf_counter()
+            xb, it = association_alt.match_svt(torch.as_tensor(W, device=d),
+                                               torch.as_tensor(mask, device=d), sizes)
+            r[d] = (xb.cpu().numpy(), int(it), time.perf_counter() - t0)
+        svt.append({"case": name, "n": W.shape[0], "iters": [r[dev][1], r["cpu"][1]],
+                    "x_bin_equal": bool(np.array_equal(r[dev][0], r["cpu"][0])),
+                    "card_s": r[dev][2]})
+    b = filter_bad_poses(seq.batch, cfg)
+    frames = []
+    for f in (0, 1, 2):
+        g = {d: association.associate_frame(b.kps[f], b.valid[f], seq.cameras, cfg, device=d)
+             for d in (dev, "cpu")}
+        frames.append({"frame": f, "groups": len(g[dev]), "groups_equal": g[dev] == g["cpu"]})
+    emit({"phase": "alt", "match_svt": svt, "associate_frame": frames})
+    if not all(c["x_bin_equal"] and c["iters"][0] == c["iters"][1] for c in svt):
+        raise AssertionError("match_svt differs between the card and the CPU")
+    if not all(fr["groups_equal"] and fr["groups"] > 0 for fr in frames):
+        raise AssertionError("associate_frame differs between the card and the CPU")
+
+
 def main() -> int:
     import torch
 
@@ -2167,6 +2598,10 @@ def main() -> int:
     run_phase("train_parity", phase_train_parity, torch, "cuda")
     run_phase("train", phase_train, torch, "cuda")
     run_phase("appearance_train", phase_appearance_train, torch, "cuda")
+    cli_launches = run_phase("cli", phase_cli, torch, "cuda", dseq)
+    detect_cli_launches = run_phase("detect_cli", phase_detect_cli, torch, "cuda", frames)
+    debug_launches = run_phase("debug_clustered", phase_debug_clustered, torch, "cuda")
+    run_phase("alt", phase_alt, torch, "cuda", dseq, dcfg)
 
     wcfg = PipelineConfig.wide(WIDE_SCENE["n_views"], max_frames=None)
     wseq = synthetic_sequence(cfg=wcfg, **WIDE_SCENE)
@@ -2181,7 +2616,8 @@ def main() -> int:
     paths = {"slice": slice_launches, "default": default_launches, "no_ik": no_ik_launches,
              "stream": stream_launches, "appearance": app_launches,
              "checkpoint": checkpoint_launches, "detect": detect_launches,
-             "wide": wide_launches,
+             "cli": cli_launches, "detect_cli": detect_cli_launches,
+             "debug_clustered": debug_launches, "wide": wide_launches,
              "wide_fused": fused_launches}
 
     def row(kernel, replaces, r, library_ms):
@@ -2195,10 +2631,12 @@ def main() -> int:
                "bound_by": r["bound_by"], "library_ms": library_ms}
         if "yardstick_ms" in r:
             out["yardstick"], out["yardstick_ms"] = r["yardstick"], r["yardstick_ms"]
-        # the device times of the LM solves, and the launch shape
+        # the device times of the LM solves, the launch shape, and the ALS
+        # kernels' X output (its agreement with the plain X, its time)
         out.update({k: r[k] for k in ("device_ms", "plain_device_ms", "library_device_ms",
                                       "yardstick_device_ms", "cluster", "threads",
-                                      "smem_bytes", "registers", "local_bytes") if k in r})
+                                      "smem_bytes", "registers", "local_bytes",
+                                      "x_max_abs_err", "ms_with_x") if k in r})
         return out
 
     tpu = "multiview_motion_capture_tpu/ops/"
@@ -2210,7 +2648,7 @@ def main() -> int:
                       ("at_detect", "als_detect")):
         als_row[key] = {k: checks[case][k] for k in (
             "case", "n", "rank", "iters_kernel", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "cluster", "ms_per_iter")}
+            "bound_by", "cluster", "ms_per_iter", "x_max_abs_err", "ms_with_x")}
     table = {"kernels": [
         als_row,
         row(cuda_lib.GJ_SOLVE, tpu + "solve_pallas.py:55", checks["gj_solve"],

@@ -26,7 +26,7 @@
 //     p = |X - Z| / n,  d = mu |X - X_prev| / n
 //     done = (p < tol and d < tol) or X > 0.5 unchanged for stable_iters
 //     mu = 2 mu if p > 10 d, mu / 2 if d > 10 p
-//   x_bin = (X + X^T) / 2 > 0.5
+//   x_bin = (X + X^T) / 2 > 0.5, and (X + X^T) / 2 itself where asked
 //
 // What bounds it on this card: at the wide rig's shape (n = 336, rank 32)
 // one iteration is ~20 MFLOP per problem (0.3 us at 67 TFLOP/s f32) and the
@@ -270,7 +270,8 @@ __global__ void __launch_bounds__(512, 1)
 als_kernel(const float* __restrict__ W, const uint8_t* __restrict__ dmask,
            const float* __restrict__ A_in, int n, int r, float alpha, float beta,
            float mu0, float tol, int max_iter, int stable_iters,
-           uint8_t* __restrict__ x_bin, int* __restrict__ iters_out) {
+           uint8_t* __restrict__ x_bin, float* __restrict__ x_out,
+           int* __restrict__ iters_out) {
   extern __shared__ float4 smem_f4[];
   __shared__ double red[96];
   __shared__ double part[3];
@@ -283,6 +284,7 @@ als_kernel(const float* __restrict__ W, const uint8_t* __restrict__ dmask,
   const int problem = blockIdx.x / S;
   W += static_cast<size_t>(problem) * n * n;
   x_bin += static_cast<size_t>(problem) * n * n;
+  if (x_out != nullptr) x_out += static_cast<size_t>(problem) * n * n;
 
   float* X = reinterpret_cast<float*>(smem_f4);  // current X, own strip
   float* Xn = X + n * ldS;   // the X step (read by peers), then the next X
@@ -412,8 +414,9 @@ als_kernel(const float* __restrict__ W, const uint8_t* __restrict__ dmask,
     Xn = tmp;
   }
 
-  // x_bin = (X + X^T) / 2 > 0.5 on the own columns; X^T from the peers'
-  // strips (every block swapped X the same number of times)
+  // x_bin = (X + X^T) / 2 > 0.5 on the own columns, and (X + X^T) / 2 into
+  // x_out where the caller passed one (the TPU kernel's X output); X^T from
+  // the peers' strips (every block swapped X the same number of times)
   for (int i = tid; i < n; i += nt) {
     const int p = i / w, il = i - p * w;
     const float* Xp = cluster.map_shared_rank(X, p);
@@ -421,6 +424,7 @@ als_kernel(const float* __restrict__ W, const uint8_t* __restrict__ dmask,
       const int j = c0 + jl;
       const float v = __fmul_rn(0.5f, __fadd_rn(X[i * ldS + jl], Xp[j * ldS + il]));
       x_bin[static_cast<size_t>(i) * n + j] = v > 0.5f ? 1 : 0;
+      if (x_out != nullptr) x_out[static_cast<size_t>(i) * n + j] = v;
     }
   }
   if (q == 0 && tid == 0) iters_out[problem] = it;
@@ -479,11 +483,13 @@ extern "C" int als_launch_shape(int n, int r, void* out) {
 }
 
 // Solve `problems` problems, one cluster each: W and x_bin (problems, n,
-// n), iters (problems,).  Returns the launch's cudaError_t.
+// n), iters (problems,); x_out (problems, n, n) f32 receives the
+// symmetrized continuous X, or is null (the tracker's launches).  Returns
+// the launch's cudaError_t.
 extern "C" int als_solve_f32(const void* W, const void* dmask, const void* init_A,
                              int problems, int n, int r, float alpha, float beta,
                              float mu0, float tol, int max_iter, int stable_iters,
-                             void* x_bin, void* iters, void* stream) {
+                             void* x_bin, void* x_out, void* iters, void* stream) {
   if (problems <= 0 || !valid_shape(n, r)) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
@@ -494,7 +500,7 @@ extern "C" int als_solve_f32(const void* W, const void* dmask, const void* init_
                            static_cast<const uint8_t*>(dmask),
                            static_cast<const float*>(init_A), n, r, alpha, beta, mu0, tol,
                            max_iter, stable_iters, static_cast<uint8_t*>(x_bin),
-                           static_cast<int*>(iters));
+                           static_cast<float*>(x_out), static_cast<int*>(iters));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

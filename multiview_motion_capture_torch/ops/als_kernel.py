@@ -15,6 +15,10 @@ mask:
 - a CPU tensor takes the plain torch version, `association.match_als`
   (once per problem for the batch).
 
+With `return_x=True` the kernel also writes the symmetrized continuous X
+(the TPU kernels' `x_out`), as the plain version always returns it; by
+default it writes none (the tracker's launches pass a null X pointer).
+
 The launch shape depends on (N, rank) alone (`launch_shape`): one block
 per problem while its state fits one SM's shared memory, else a cluster of
 16 blocks.  Each wrapper raises on anything its kernel does not take,
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -67,34 +71,36 @@ def launch_shape(n: int, rank: int) -> LaunchShape:
 def match_als(W: torch.Tensor, diag_mask: torch.Tensor, init_A: torch.Tensor,
               alpha: float = 50.0, beta: float = 0.1, mu0: float = 64.0,
               tol: float = 1e-4, max_iter: int = 1000,
-              stable_iters: int = 0) -> AlsResult:
+              stable_iters: int = 0, return_x: bool = False) -> AlsResult:
     """ALS multi-way matching (same arguments and result as
-    `association.match_als`; `x` is None from the kernel, which binarizes
-    on the device and never writes X out)."""
+    `association.match_als`).  The kernel writes `x`, the symmetrized
+    continuous X, only with `return_x=True`; else `x` is None."""
     if W.device.type == "cpu":
-        return association.match_als(W, diag_mask, init_A, alpha=alpha, beta=beta,
-                                     mu0=mu0, tol=tol, max_iter=max_iter,
-                                     stable_iters=stable_iters)
+        res = association.match_als(W, diag_mask, init_A, alpha=alpha, beta=beta,
+                                    mu0=mu0, tol=tol, max_iter=max_iter,
+                                    stable_iters=stable_iters)
+        return res if return_x else res._replace(x=None)
     if W.device.type != "cuda":
         raise ValueError(f"match_als: unsupported device {W.device}")
     n = W.shape[0]
     if W.shape != (n, n) or W.dtype != torch.float32:
         raise ValueError(f"W must be (N, N) float32, got {tuple(W.shape)} {W.dtype}")
     rank = _check_inputs(W, n, diag_mask, init_A)
-    x_bin, iters = _launch(ALS, W, diag_mask, init_A, rank, alpha, beta, mu0, tol,
-                           max_iter, stable_iters)
-    return AlsResult(x_bin=x_bin[0], n_iters=iters[0])
+    x_bin, iters, x = _launch(ALS, W, diag_mask, init_A, rank, alpha, beta, mu0, tol,
+                              max_iter, stable_iters, return_x)
+    return AlsResult(x_bin=x_bin[0], n_iters=iters[0], x=None if x is None else x[0])
 
 
 class AlsBatchResult(NamedTuple):
     x_bin: torch.Tensor    # (C, N, N) bool, each problem's binarized match matrix
     n_iters: torch.Tensor  # (C,) int32, each problem's iteration count
+    x: Optional[torch.Tensor] = None  # (C, N, N) f32 symmetrized X (return_x only)
 
 
 def match_als_batched(W: torch.Tensor, diag_mask: torch.Tensor, init_A: torch.Tensor,
                       alpha: float = 50.0, beta: float = 0.1, mu0: float = 64.0,
                       tol: float = 1e-4, max_iter: int = 1000,
-                      stable_iters: int = 0) -> AlsBatchResult:
+                      stable_iters: int = 0, return_x: bool = False) -> AlsBatchResult:
     """C independent ALS matchings of one layout: W (C, N, N) similarities,
     one (N, N) same-group mask and one (N, rank) initial factor for all.
     Each problem stops at its own test, so problem c's result equals
@@ -107,7 +113,8 @@ def match_als_batched(W: torch.Tensor, diag_mask: torch.Tensor, init_A: torch.Te
         solos = [association.match_als(W[c], diag_mask, init_A, **kw)
                  for c in range(W.shape[0])]
         return AlsBatchResult(x_bin=torch.stack([s.x_bin for s in solos]),
-                              n_iters=torch.stack([s.n_iters for s in solos]))
+                              n_iters=torch.stack([s.n_iters for s in solos]),
+                              x=torch.stack([s.x for s in solos]) if return_x else None)
     if W.device.type != "cuda":
         raise ValueError(f"match_als_batched: unsupported device {W.device}")
     C, n = W.shape[0], W.shape[1]
@@ -116,31 +123,34 @@ def match_als_batched(W: torch.Tensor, diag_mask: torch.Tensor, init_A: torch.Te
     if C < 1:
         raise ValueError("match_als_batched needs at least one problem")
     rank = _check_inputs(W, n, diag_mask, init_A)
-    x_bin, iters = _launch(ALS_BATCHED, W, diag_mask, init_A, rank, alpha, beta, mu0, tol,
-                           max_iter, stable_iters)
-    return AlsBatchResult(x_bin=x_bin, n_iters=iters)
+    x_bin, iters, x = _launch(ALS_BATCHED, W, diag_mask, init_A, rank, alpha, beta, mu0,
+                              tol, max_iter, stable_iters, return_x)
+    return AlsBatchResult(x_bin=x_bin, n_iters=iters, x=x)
 
 
 def _launch(kernel: CudaKernel, W: torch.Tensor, diag_mask: torch.Tensor,
             init_A: torch.Tensor, rank: int, alpha: float, beta: float, mu0: float,
-            tol: float, max_iter: int, stable_iters: int):
+            tol: float, max_iter: int, stable_iters: int, return_x: bool):
     """One launch of `csrc/als.cu` for the problems of W ((N, N) is one
     problem, (C, N, N) C of them), counted in `kernel.launches`.  Returns
-    x_bin (C, N, N) and iters (C,)."""
+    x_bin (C, N, N), iters (C,) and, with `return_x`, X (C, N, N) f32
+    (else None: the kernel gets a null pointer and writes no X)."""
     n = W.shape[-1]
     C = W.shape[0] if W.dim() == 3 else 1
     launch_shape(n, rank)   # raises where the card holds no such cluster
     x_bin = torch.empty((C, n, n), dtype=torch.bool, device=W.device)
     iters = torch.empty((C,), dtype=torch.int32, device=W.device)
+    x = torch.empty((C, n, n), dtype=torch.float32, device=W.device) if return_x else None
     stream = torch.cuda.current_stream(W.device).cuda_stream
     err = kernel.lib().als_solve_f32(
         W.data_ptr(), diag_mask.data_ptr(), init_A.data_ptr(), C, n, rank,
         float(alpha), float(beta), float(mu0), float(tol), int(max_iter),
-        int(stable_iters), x_bin.data_ptr(), iters.data_ptr(), stream)
+        int(stable_iters), x_bin.data_ptr(), None if x is None else x.data_ptr(),
+        iters.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"als_solve_f32 launch failed: cudaError {err}")
     kernel.launches += 1
-    return x_bin, iters
+    return x_bin, iters, x
 
 
 def _check_inputs(W: torch.Tensor, n: int, diag_mask: torch.Tensor,

@@ -13,6 +13,8 @@ Port of `multiview_motion_capture_tpu/ops/association.py`:
 - `extract_groups`: each element's group representative is the lowest-index
   member of its equivalence class; an element participates only when its
   group has >= 2 members.
+- `associate_frame`: one frame's cross-view association on its own
+  (spatial affinity -> ALS -> groups), on the card unless asked otherwise.
 """
 from __future__ import annotations
 
@@ -184,3 +186,63 @@ def extract_groups(x_bin: Tensor, elem_valid: Tensor) -> MatchGroups:
     group_size = closure.sum(dim=0).to(torch.int32)
     member = elem_valid & (group_size >= 2)
     return MatchGroups(rep=rep, group_size=group_size, member=member)
+
+
+def associate_frame(kps, valid, cams, cfg=None, device="cuda"):
+    """Standalone single-frame cross-view association (the reference's
+    `match_multiview_poses`, ref:src/mv_association.py:414-457): spatial
+    epipolar affinity -> ALS (`als_kernel.match_als`: the ALS kernel on the
+    card, its plain version for `device="cpu"`) -> groups of (view,
+    detection) pairs.
+
+    kps: (V, P, K, 3) numpy or tensor; valid: (V, P) bool; cams: a
+    `cameras.CameraBank`.  The similarity is formed in `WORK_DTYPE` and
+    rounded once to f32, as the tracker's.  Returns List[List[(view, det)]]
+    for the groups with >= 2 members, ordered by their leader."""
+    from multiview_motion_capture_torch.cameras import pairwise_fundamental_np
+    from multiview_motion_capture_torch.config import PipelineConfig
+    from multiview_motion_capture_torch.ops import als_kernel
+    from multiview_motion_capture_torch.ops.geometry import projected_distance_all_pairs
+    from multiview_motion_capture_torch.utils.precision import (
+        WORK_DTYPE,
+        high_precision,
+        resolve_device,
+    )
+
+    dev = resolve_device(device)
+    high_precision()
+    V, P = kps.shape[0], kps.shape[1]
+    cfg = cfg or PipelineConfig(n_views=V, max_people=P)
+    F = pairwise_fundamental_np(np.asarray(cams.K.cpu(), dtype=np.float64),
+                                np.asarray(cams.Rt.cpu(), dtype=np.float64))
+    # F reaches the distances as the f32 constant the JAX package uses
+    F = torch.as_tensor(F.astype(np.float32), device=dev).to(WORK_DTYPE)
+    kps_w = torch.as_tensor(kps, dtype=torch.float32, device=dev).to(WORK_DTYPE)
+    d = projected_distance_all_pairs(kps_w, F)                   # (V, P, V, P)
+    same_view = torch.eye(V, dtype=torch.bool, device=dev)[:, None, :, None]
+    d = torch.where(same_view, torch.full_like(d, cfg.spatial_fill_distance), d)
+    dst = d.reshape(V * P, V * P)
+    eye = torch.eye(V * P, dtype=torch.bool, device=dev)
+    zero = torch.zeros_like(dst)
+    dst = torch.where(eye, zero, dst)
+    dv = torch.as_tensor(valid, dtype=torch.bool, device=dev).reshape(-1)
+    both = dv[:, None] & dv[None, :]
+    cnt = both.sum().clamp(min=1)
+    mean = torch.where(both, dst, zero).sum() / cnt
+    var = torch.where(both, (dst - mean) ** 2, zero).sum() / cnt
+    sim = torch.where(both, torch.sigmoid(-cfg.affinity_sigmoid_scale * (dst - mean)
+                                          / torch.sqrt(var).clamp(min=1e-6)), zero)
+    sizes = (P,) * V
+    res = als_kernel.match_als(
+        sim.to(torch.float32).contiguous(),
+        torch.as_tensor(block_diag_mask(sizes), device=dev),
+        torch.as_tensor(default_init_factor(V * P, cfg.als_max_rank), device=dev),
+        alpha=cfg.als_alpha, beta=cfg.als_beta, mu0=cfg.als_mu, tol=cfg.als_tol,
+        max_iter=cfg.als_max_iter, stable_iters=cfg.als_stable_iters)
+    g = extract_groups(res.x_bin, dv)
+    rep, member = g.rep.cpu().numpy(), g.member.cpu().numpy()
+    groups = {}
+    for e in range(V * P):
+        if member[e]:
+            groups.setdefault(int(rep[e]), []).append((e // P, e % P))
+    return [v for _, v in sorted(groups.items()) if len(v) >= 2]

@@ -138,9 +138,9 @@ ALS_LIB = CudaLibrary("als", "als.cu", {
     # n, rank, int[4] out: cluster blocks, threads, smem bytes, resident clusters
     "als_launch_shape": (_i, [_i, _i, _p]),
     # W, diag_mask, init_A, problems, n, rank, alpha, beta, mu0, tol,
-    # max_iter, stable_iters, x_bin, iters, stream
+    # max_iter, stable_iters, x_bin, x_out (nullable), iters, stream
     "als_solve_f32": (_i, [_p, _p, _p, _i, _i, _i, _f, _f, _f, _f, _i, _i,
-                           _p, _p, _p]),
+                           _p, _p, _p, _p]),
 })
 GJ_LIB = CudaLibrary("gj_solve", "gj_solve.cu", {
     "gj_max_d": (_i, []),

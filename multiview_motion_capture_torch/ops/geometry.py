@@ -1,7 +1,8 @@
 """Batched epipolar / projective geometry on tensors.
 
-Port of the parts of `multiview_motion_capture_tpu/ops/geometry.py` the
-tracker's similarity builders use.  Conventions: points are pixel
+Port of `multiview_motion_capture_tpu/ops/geometry.py`: the fundamental
+matrices, epipolar distances, projection and reprojection error, and
+pixel-to-ray unprojection.  Conventions: points are pixel
 coordinates, homogeneous via an appended 1; epipolar lines are normalized so
 a^2 + b^2 = 1 (cv2.computeCorrespondEpilines semantics), making |l . x| the
 point-line distance in pixels.  Callers pin full f32 (no TF32) through
@@ -16,6 +17,47 @@ Tensor = torch.Tensor
 
 def _homo(xy: Tensor) -> Tensor:
     return torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)
+
+
+def fundamental_from_projections(P1: Tensor, P2: Tensor) -> Tensor:
+    """F from two 3x4 projection matrices by the minor/determinant
+    construction (ref:src/mv_math_util.py:57-77; Hartley & Zisserman
+    9.2.2): F[i, j] = det([P1 without row j; P2 without row i]), rows kept
+    in cyclic order.  Batched over the leading dims of P1/P2."""
+    idx = torch.tensor([[1, 2], [2, 0], [0, 1]], device=P1.device)
+    x = P1[..., idx, :]                                   # (..., 3, 2, 4)
+    y = P2[..., idx, :]
+    lead = x.shape[:-3]
+    stacked = torch.cat([x[..., None, :, :, :].expand(*lead, 3, 3, 2, 4),
+                         y[..., :, None, :, :].expand(*lead, 3, 3, 2, 4)], dim=-2)
+    return torch.linalg.det(stacked)                      # (..., 3, 3)
+
+
+def _skew(v: Tensor) -> Tensor:
+    zero = torch.zeros_like(v[..., 0])
+    return torch.stack([
+        torch.stack([zero, -v[..., 2], v[..., 1]], dim=-1),
+        torch.stack([v[..., 2], zero, -v[..., 0]], dim=-1),
+        torch.stack([-v[..., 1], v[..., 0], zero], dim=-1),
+    ], dim=-2)
+
+
+def pairwise_fundamental_mats(K: Tensor, Rt: Tensor) -> Tensor:
+    """All-pairs fundamental tensor (V, V, 3, 3) in one batch, the closed
+    form of ref:src/mv_math_util.py:267-285:
+      F_ij = K_i^-T (R_i R_j^T) K_j^T [K_j R_j R_i^T (t_i - R_i R_j^T t_j)]_x
+    with 1e-12 added to the self pairs (exactly zero) to keep them finite.
+    The tracker's own F comes from `cameras.pairwise_fundamental_np` (f64 on
+    the host, normalized)."""
+    R, t = Rt[..., :3], Rt[..., 3]
+    K_inv_T = torch.linalg.inv(K).transpose(1, 2)
+    Rij = torch.einsum("iab,jcb->ijac", R, R)                        # R_i R_j^T
+    rel_t = t[:, None, :] - torch.einsum("ijab,jb->ija", Rij, t)     # t_i - R_i R_j^T t_j
+    e = torch.einsum("jab,ijcb->ijac", K, Rij.transpose(2, 3))       # K_j R_j R_i^T
+    e = torch.einsum("ijab,ijb->ija", e, rel_t)
+    F = torch.einsum("iab,ijbc,jdc,ijde->ijae", K_inv_T, Rij, K, _skew(e))
+    eye = torch.eye(F.shape[0], dtype=torch.bool, device=F.device)[:, :, None, None]
+    return torch.where(eye, F + 1e-12, F)
 
 
 def _normalize_lines(lines: Tensor) -> Tensor:
@@ -96,3 +138,18 @@ def masked_reprojection_error(pts_3d: Tensor, scores_3d: Tensor, kps_2d: Tensor,
     total = torch.where(valid, d, torch.zeros_like(d)).sum(-1)
     return torch.where(cnt > 0, total / cnt.clamp(min=1),
                        torch.full_like(total, float("nan")))
+
+
+def unproject_to_rays(kps_2d: Tensor, Kr_inv: Tensor) -> Tensor:
+    """Pixel -> unit world-space ray directions (ref:src/mv_math_util.py:
+    11-21).  kps_2d: (..., 2); Kr_inv: (..., 3, 3)."""
+    rays = torch.einsum("...ab,...b->...a", Kr_inv, _homo(kps_2d))
+    return rays / (torch.linalg.vector_norm(rays, dim=-1, keepdim=True) + 1e-12)
+
+
+def point_to_ray_distance(points: Tensor, origins: Tensor, rays: Tensor) -> Tensor:
+    """Distance of 3D `points` to rays (origin, unit direction)
+    (ref:src/mv_math_util.py:24-32)."""
+    diff = points - origins
+    diff, rays = torch.broadcast_tensors(diff, rays)
+    return torch.linalg.vector_norm(torch.linalg.cross(diff, rays, dim=-1), dim=-1)

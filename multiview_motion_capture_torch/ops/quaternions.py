@@ -1,10 +1,16 @@
-"""Quaternion algebra on (..., 4) tensors in wxyz layout: the subset of
-`multiview_motion_capture_tpu/ops/quaternions.py` that the IK's geometric
-cold-start init uses, with the same conventions (`qmul(a, b)` is the
-reference's `a * b`, ref:src/Quaternions.py:96-115; `to_euler` its xyz
-extraction, ref:src/Quaternions.py:268-272).
+"""Quaternion algebra on (..., 4) tensors in wxyz layout.
+
+Port of `multiview_motion_capture_tpu/ops/quaternions.py`, with the same
+conventions: `qmul(a, b)` is the reference's `a * b`
+(ref:src/Quaternions.py:96-115), `to_euler` its xyz extraction
+(ref:src/Quaternions.py:268-272), `average` its eigen-average
+(ref:src/Quaternions.py:310-322).  The IK's geometric cold-start init uses
+`from_matrix`, `qrot`, `between` and `to_euler`; the rest serves motion
+tooling.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -39,6 +45,20 @@ def qrot(q: Tensor, v: Tensor) -> Tensor:
     return qmul(q, qmul(vq, conjugate(q)))[..., 1:]
 
 
+def to_matrix(q: Tensor) -> Tensor:
+    """(..., 4) -> (..., 3, 3) rotation matrices (ref:src/Quaternions.py:335-366)."""
+    qw, qx, qy, qz = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    x2, y2, z2 = qx + qx, qy + qy, qz + qz
+    xx, yy, zz = qx * x2, qy * y2, qz * z2
+    wx, wy, wz = qw * x2, qw * y2, qw * z2
+    xy, yz, xz = qx * y2, qy * z2, qx * z2
+    return torch.stack([
+        torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1),
+        torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1),
+        torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1),
+    ], dim=-2)
+
+
 def from_matrix(m: Tensor) -> Tensor:
     """(..., 3, 3) -> (..., 4): the reference's branch-free Shepperd variant
     (ref:src/Quaternions.py:465-506) with its sign fixups as selects."""
@@ -71,6 +91,35 @@ def from_matrix(m: Tensor) -> Tensor:
     return torch.stack([w, x, y, z], dim=-1)
 
 
+def from_angle_axis(angle: Tensor, axis: Tensor) -> Tensor:
+    """(...,), (..., 3) -> (..., 4) (ref:src/Quaternions.py:444-448)."""
+    axis = axis / (torch.linalg.vector_norm(axis, dim=-1, keepdim=True) + _EPS)
+    half = angle[..., None] / 2.0
+    axis, half = torch.broadcast_tensors(axis, half)
+    return torch.cat([torch.cos(half[..., :1]), axis * torch.sin(half)], dim=-1)
+
+
+def to_angle_axis(q: Tensor) -> Tuple[Tensor, Tensor]:
+    """(..., 4) -> (angles (...,), axes (..., 3)) (ref:src/Quaternions.py:324-333)."""
+    q = normalize(q)
+    s = torch.sqrt((1.0 - q[..., 0] ** 2).clamp(min=0.0))
+    s = torch.where(s == 0, torch.full_like(s, 0.001), s)
+    return 2.0 * torch.acos(q[..., 0].clamp(-1.0, 1.0)), q[..., 1:] / s[..., None]
+
+
+_AXES = {"x": (1.0, 0.0, 0.0), "y": (0.0, 1.0, 0.0), "z": (0.0, 0.0, 1.0)}
+
+
+def from_euler(es: Tensor, order: str = "xyz", world: bool = False) -> Tensor:
+    """(..., 3) euler angles -> (..., 4) (ref:src/Quaternions.py:450-462)."""
+    qs = [from_angle_axis(es[..., i], torch.tensor(_AXES[order[i]], dtype=es.dtype,
+                                                   device=es.device))
+          for i in range(3)]
+    if world:
+        return qmul(qs[2], qmul(qs[1], qs[0]))
+    return qmul(qs[0], qmul(qs[1], qs[2]))
+
+
 def to_euler(q: Tensor) -> Tensor:
     """(..., 4) -> (..., 3) xyz euler extraction."""
     q = normalize(q)
@@ -86,3 +135,49 @@ def between(v0: Tensor, v1: Tensor) -> Tensor:
     a = torch.linalg.cross(v0, v1)
     w = torch.sqrt((v0 ** 2).sum(-1) * (v1 ** 2).sum(-1)) + (v0 * v1).sum(-1)
     return normalize(torch.cat([w[..., None], a], dim=-1))
+
+
+def exp(w: Tensor) -> Tensor:
+    """Exponential map: rotation vectors (..., 3) -> quaternions
+    (ref:src/Quaternions.py:393-405)."""
+    t = torch.linalg.vector_norm(w, dim=-1)
+    t_safe = torch.where(t == 0, torch.full_like(t, 0.001), t)
+    scale = torch.sin(t_safe) / t_safe
+    return normalize(torch.cat([torch.cos(t_safe)[..., None], w * scale[..., None]], dim=-1))
+
+
+def log(q: Tensor) -> Tensor:
+    """Log map: quaternions -> rotation vectors (..., 3)
+    (ref:src/Quaternions.py:196-201)."""
+    q = normalize(q)
+    w = q[..., :1]
+    q = q * torch.sign(torch.where(w == 0, torch.ones_like(w), w))  # abs() hemisphere
+    imgs = q[..., 1:]
+    lens = torch.linalg.vector_norm(imgs, dim=-1)
+    scale = torch.atan2(lens, q[..., 0]) / (lens + _EPS)
+    return imgs * scale[..., None]
+
+
+def slerp(q0: Tensor, q1: Tensor, a) -> Tensor:
+    """Spherical interpolation (ref:src/Quaternions.py:408-434); `a` in
+    [0, 1] broadcasts over the batch."""
+    a = torch.as_tensor(a, dtype=q0.dtype, device=q0.device)
+    d = (q0 * q1).sum(-1)
+    q1 = torch.where(d[..., None] < 0, -q1, q1)
+    d = d.abs()
+    linear = (1.0 - d) < 0.01
+    omega = torch.acos(torch.where(linear, torch.zeros_like(d), d).clamp(-1.0, 1.0))
+    sinom = torch.where(linear, torch.ones_like(omega), torch.sin(omega))
+    w0 = torch.where(linear, 1.0 - a, torch.sin((1.0 - a) * omega) / sinom)
+    w1 = torch.where(linear, a, torch.sin(a * omega) / sinom)
+    return w0[..., None] * q0 + w1[..., None] * q1
+
+
+def average(qs: Tensor) -> Tensor:
+    """Eigen-average of an (N, 4) quaternion set (ref:src/Quaternions.py:
+    310-322): the eigenvector of sum_i q_i q_i^T best aligned with the
+    inputs."""
+    system = torch.einsum("ni,nj->ij", qs, qs)
+    _, v = torch.linalg.eigh(system)           # columns ascending by eigenvalue
+    align = (1.0 - torch.einsum("ni,ij->nj", qs, v) ** 2).sum(0)
+    return v[:, torch.argmin(align)]

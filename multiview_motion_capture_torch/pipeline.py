@@ -13,14 +13,12 @@ Port of `multiview_motion_capture_tpu/pipeline.py` but its device mesh:
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import pickle
 import time
 import warnings
-from collections import defaultdict
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -44,6 +42,7 @@ from multiview_motion_capture_torch.tracker import (
 )
 from multiview_motion_capture_torch.utils import checkpoint as ckpt
 from multiview_motion_capture_torch.utils.precision import resolve_device
+from multiview_motion_capture_torch.utils.profiling import StageTimer
 
 
 @dataclasses.dataclass
@@ -60,22 +59,6 @@ class RunResult:
     @property
     def fps(self) -> float:
         return self.n_frames / max(self.track_time_s, 1e-9)
-
-
-class _StageTimer:
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.totals: Dict[str, float] = defaultdict(float)
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.totals[name] += time.perf_counter() - t0
 
 
 def _density_guard(cfg: PipelineConfig, active: np.ndarray) -> float:
@@ -141,7 +124,7 @@ def run(batch: FrameBatch, cams: CameraBank, cfg: Optional[PipelineConfig] = Non
     order."""
     dev = resolve_device(device)
     cfg = cfg or PipelineConfig(n_views=batch.n_views)
-    timer = _StageTimer(dev)
+    timer = StageTimer(dev)
 
     def post(tracklets: List[Tracklet]) -> List[Tracklet]:
         if crossings:
@@ -211,7 +194,7 @@ def run(batch: FrameBatch, cams: CameraBank, cfg: Optional[PipelineConfig] = Non
         n_frames=int(end - start),
         wall_time_s=time.perf_counter() - t0,
         track_time_s=track_time,
-        timings=dict(timer.totals),
+        timings=timer.summary(),
         mean_concurrent_tracks=_density_guard(cfg, host_out.active),
     )
 

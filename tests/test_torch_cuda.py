@@ -44,6 +44,34 @@ def test_als_kernel_equals_plain(cuda, sizes, rank):
     assert int(k.n_iters) == int(p.n_iters)
 
 
+@pytest.mark.parametrize("sizes,rank", [((8, 6, 6, 6, 6, 6), 16), ((16,) + (10,) * 5, 32),
+                                        ((16,) + (10,) * 32, 32)])
+def test_als_kernel_x_output_equals_plain(cuda, sizes, rank):
+    """B1 writes the symmetrized X only when asked: then it equals the plain
+    version's X bit for bit, and x_bin and the iteration count are those of
+    the launch without it."""
+    W, mask, init = _als_inputs(cuda, sizes, rank, 1, seed=7)
+    kw = dict(max_iter=60, stable_iters=10)
+    k = als_kernel.match_als(W[0], mask, init, **kw)
+    kx = als_kernel.match_als(W[0], mask, init, return_x=True, **kw)
+    p = association.match_als(W[0], mask, init, **kw)
+    assert k.x is None and kx.x.dtype == torch.float32
+    assert torch.equal(kx.x, p.x)
+    assert torch.equal(kx.x_bin, k.x_bin) and int(kx.n_iters) == int(k.n_iters)
+
+
+def test_als_batched_x_output_equals_plain(cuda):
+    """B3's X output: each problem's X equals the plain version's."""
+    W, mask, init = _als_inputs(cuda, (16,) + (10,) * 32, 32, 2, seed=8)
+    kw = dict(max_iter=40, stable_iters=10)
+    k = als_kernel.match_als_batched(W, mask, init, **kw)
+    kx = als_kernel.match_als_batched(W, mask, init, return_x=True, **kw)
+    assert k.x is None and kx.x.shape == W.shape
+    assert torch.equal(kx.x_bin, k.x_bin) and torch.equal(kx.n_iters, k.n_iters)
+    for c in range(W.shape[0]):
+        assert torch.equal(kx.x[c], association.match_als(W[c], mask, init, **kw).x)
+
+
 def _als_inputs(cuda, sizes, rank, C, seed):
     rng = np.random.RandomState(seed)
     n = sum(sizes)

@@ -4,6 +4,7 @@ caller asks for the CPU, and its CUDA sources are where the build helper
 looks for them.  Nothing here needs JAX or a GPU."""
 import ast
 import dataclasses
+import importlib
 from pathlib import Path
 
 import pytest
@@ -39,16 +40,35 @@ def test_port_imports_no_jax():
     assert not bad, bad
 
 
+# the TPU kernels' modules and their counterparts (own wrappers, own names)
+KERNEL_MODULES = {"ops/als_pallas.py": "ops/als_kernel.py",
+                  "ops/solve_pallas.py": "ops/solve_kernel.py"}
+
+
+def _public_names(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return sorted(n.name for n in tree.body
+                  if isinstance(n, (ast.FunctionDef, ast.ClassDef)) and not n.name.startswith("_"))
+
+
 def test_port_modules_mirror_the_jax_package():
-    for rel in ("config.py", "pose_def.py", "cameras.py", "data/ingest.py",
-                "data/synthetic.py", "ops/geometry.py", "ops/association.py",
-                "ops/als_kernel.py", "ops/triangulate.py", "ops/fk.py",
-                "ops/solve_kernel.py", "ops/ik.py", "tracker.py", "pipeline.py", "eval.py",
-                "models/bone_prior.py", "reid.py", "crossings.py", "utils/checkpoint.py",
-                "models/pose_net.py", "models/appearance_net.py", "models/checkpoint.py",
-                "data/detect.py", "data/render.py", "data/detect_train.py",
-                "data/appearance_train.py", "utils/testcache.py"):
-        assert (PKG / rel).is_file(), rel
+    """Every module of the JAX package but `parallel/` (multi-device) has a
+    counterpart at the same relative path (the kernel modules at theirs),
+    holding every public function and class of the JAX module (read from
+    its source; JAX is not imported)."""
+    jax_pkg = PKG.parent / "multiview_motion_capture_tpu"
+    rels = [p.relative_to(jax_pkg).as_posix() for p in sorted(jax_pkg.rglob("*.py"))
+            if p.relative_to(jax_pkg).parts[0] != "parallel"]
+    assert len(rels) >= 45 and "debug.py" in rels and "utils/viz.py" in rels
+    for rel in rels:
+        port_rel = KERNEL_MODULES.get(rel, rel)
+        assert (PKG / port_rel).is_file(), rel
+        if rel in KERNEL_MODULES:
+            continue
+        name = ".".join(("multiview_motion_capture_torch",) + Path(port_rel).with_suffix("").parts)
+        mod = importlib.import_module(name.removesuffix(".__init__"))
+        missing = [n for n in _public_names(jax_pkg / rel) if not hasattr(mod, n)]
+        assert not missing, (rel, missing)
 
 
 def test_cuda_sources_exist_and_are_named_by_the_build_helper():
@@ -107,6 +127,17 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         create_train_state(torch.Generator(), PoseNetConfig())
     with pytest.raises(RuntimeError, match="device='cuda'"):
         init_head(torch.Generator())
+    # the side surfaces and the CLI (run and detect without --cpu)
+    from multiview_motion_capture_torch import __main__ as cli
+    from multiview_motion_capture_torch.ops import association, fk_generic
+
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        association.associate_frame(seq.batch.kps[0], seq.batch.valid[0], seq.cameras)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        fk_generic.GenericSkeleton.build([-1, 0], [[0, 0, 0], [0, 0, 1]])
+    for mode in (["run", "--kps_dir", "k"], ["detect", "--image_dir", "i"]):
+        with pytest.raises(RuntimeError, match="device='cuda'"):
+            cli.main([*mode, "--calib_dir", "c", "--out_dir", "o"])
     # asking for the CPU works
     ctx = tracker.TrackerContext.build(seq.cameras, cfg, device="cpu")
     assert ctx.device.type == "cpu"
