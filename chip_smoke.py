@@ -74,6 +74,20 @@ each with the launch counters set to 0 just before it and read just after:
   of that scene, `wide_fused` (the same with ik_solver="gj_fused": kernel
   B4), `wide_parity` (card vs CPU decisions) and `wide_profile`.
 
+- the multi-device paths (`parallel/`), on meshes whose entries all are
+  this card (what needs a second GPU is not certified here): `mesh_wide`
+  (the wide rig's cluster ALS on a 2-entry cluster mesh, one B3 launch an
+  entry, and its LM on a 4-entry track mesh, B2, then B4 under
+  "gj_fused"), `mesh_cameras` (`PipelineConfig.wide(32)`: one cluster, B1
+  at N 336, the similarity blocks camera-sharded over 4 entries), each
+  bit-equal in x_bin, decisions and tracklets to the unsharded run;
+  `mesh_spec` (`pipeline.run(mesh_spec=)` through the visible-device
+  route on SHELF_BENCH, bit-equal to `slice`; JAX's errors for a cluster
+  mesh without clusters and for more devices than visible); `streams`
+  (four SHELF_BENCH streams in four threads, each bit-equal to
+  `run_offline` alone); `mesh_train` (the dp x tp PoseNet step at (2, 2)
+  and (1, 1) against the unsharded step, steps/s).
+
 The kernel checks also launch B1 and B3 with their X output
 (`return_x=True`): X bit-equal to the plain version's, x_bin and the
 iterations those of the launch without it (`als_x`, and `x_max_abs_err`,
@@ -1032,7 +1046,7 @@ def phase_slice(torch, dev, seq, cfg):
             or abs(m.mean_reproj_px - REFERENCE["mean_reproj_px"]) > REPROJ_GATE_PX
             or abs(m.median_reproj_px - REFERENCE["median_reproj_px"]) > REPROJ_GATE_PX):
         raise AssertionError("slice quality is off the JAX reference")
-    return launches
+    return launches, res
 
 
 DECISIONS = ("track_id", "active", "updated", "spawned", "died_track_id", "matched_pose")
@@ -1430,7 +1444,8 @@ def phase_wide(torch, dev, seq, cfg):
 
     b = filter_bad_poses(seq.batch, cfg)
     ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=dev)
-    _, o = tracker.run_offline(ctx, b.kps, b.valid)
+    with recording_associate() as xbins:
+        _, o = tracker.run_offline(ctx, b.kps, b.valid)
     o = tracker.outputs_to_numpy(o)
     dig, ref = ev.decision_digests(o), WIDE_REFERENCE["decision_digests"]
     first = next((f for f in range(len(dig)) if dig[f] != ref[f]), None)
@@ -1457,7 +1472,8 @@ def phase_wide(torch, dev, seq, cfg):
             or abs(q["mean_reproj_px"] - ref_q["mean_reproj_px"]) > REPROJ_GATE_PX
             or abs(q["median_reproj_px"] - ref_q["median_reproj_px"]) > REPROJ_GATE_PX):
         raise AssertionError("wide quality is off the JAX reference")
-    return launches, res
+    # its per-frame outputs and x_bins: what `mesh_wide` holds its run against
+    return launches, res, (o, [x.cpu() for x in xbins])
 
 
 def phase_wide_fused(torch, dev, seq, cfg, gj_res):
@@ -2543,6 +2559,377 @@ def phase_alt(torch, dev, seq, cfg):
         raise AssertionError("associate_frame differs between the card and the CPU")
 
 
+# ---------------------------------------------------------------------------
+# multi-device paths (parallel/), on meshes that repeat cuda:0
+# ---------------------------------------------------------------------------
+
+MESH_WIDE_CLUSTERS = 2            # cluster mesh of the wide rig: one cluster a device
+MESH_TRACKS = 4                   # track mesh: 16 slots, 4 a device
+MESH_CAMERAS = 4                  # camera mesh of the 32-camera rig: 8 cameras a device
+MESH_FUSED_FRAMES = 10
+MESH_POSE_TOL_M = 1e-5
+# 30 frames a stream: four host loops under one GIL run ~4x slower than one
+STREAMS = dict(n_streams=4, seeds=[0, 1, 2, 3], n_frames=30)
+MESH_TRAIN = dict(batch=16, steps=2, timed_steps=5, lr=1e-3, seed=0)
+MESH_TRAIN_LOSS_RTOL = 1e-5
+MESH_TRAIN_GRAD_TOL = 1e-5        # of each leaf's largest magnitude
+MESH_TRAIN_AT_EPS_LR = 0.01       # a weight this many lr apart had a gradient near eps
+
+
+def repeated(torch, dev, n):
+    return [torch.device(dev)] * n
+
+
+def timed_run_offline(torch, ctx, kps, valid):
+    """One `run_offline` pass, synchronised, with each frame's association
+    x_bin kept: (outputs on the host, x_bins, seconds)."""
+    from multiview_motion_capture_torch import tracker
+
+    with recording_associate() as xbins:
+        t0 = time.perf_counter()
+        _, o = tracker.run_offline(ctx, kps, valid)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return tracker.outputs_to_numpy(o), [x.cpu() for x in xbins], secs
+
+
+def compare_runs(torch, plain, sharded) -> dict:
+    """Two runs' per-frame outputs and x_bins: decisions, x_bin and poses."""
+    import numpy as np
+
+    (po, px, _), (so, sx, _) = plain, sharded
+    first_diff = {}
+    for f in DECISIONS:
+        bad = np.nonzero((getattr(po, f) != getattr(so, f)).reshape(len(px), -1).any(1))[0]
+        if len(bad):
+            first_diff[f] = int(bad[0])
+    xbin_frames = [i for i, (a, b) in enumerate(zip(px, sx)) if not torch.equal(a, b)]
+    upd = po.updated & so.updated
+    pose = float(np.abs(po.pose3d - so.pose3d).max(-1)[upd].max()) if upd.any() else 0.0
+    return {"decisions_equal": not first_diff, "first_diverging_frame": first_diff,
+            "x_bin_equal": not xbin_frames, "x_bin_differing_frames": xbin_frames[:10],
+            "max_pose_diff_m": pose,
+            "outputs_bit_equal": all(np.array_equal(a, b) for a, b in zip(po, so))}
+
+
+def structure(tracklets):
+    import numpy as np
+
+    return [(t.track_id, list(t.frame_idxs), np.asarray(t.matched_pose).tolist())
+            for t in tracklets]
+
+
+def phase_mesh_wide(torch, dev, seq, cfg, wide_res, wide_run):
+    """The wide rig with its two cluster ALS problems on a cluster mesh of
+    MESH_WIDE_CLUSTERS entries (one B3 launch a device) and its 16 LM slots
+    on a track mesh of MESH_TRACKS (B2 on each), every entry cuda:0:
+    x_bin, decisions and tracklets bit-equal to the `wide` phase's
+    unsharded run (its per-frame outputs and x_bins, its tracklets), poses
+    within MESH_POSE_TOL_M; frames/s beside the `wide` phase's.  Then MESH_FUSED_FRAMES frames under "gj_fused" (B4
+    on each track-mesh entry) against the unsharded "gj_fused" run."""
+    from multiview_motion_capture_torch import pipeline, tracker
+    from multiview_motion_capture_torch.data.ingest import filter_bad_poses
+    from multiview_motion_capture_torch.parallel.sharded_solvers import (
+        make_cluster_mesh,
+        make_track_mesh,
+    )
+
+    meshes = dict(cluster_mesh=make_cluster_mesh(MESH_WIDE_CLUSTERS,
+                                                 devices=repeated(torch, dev, MESH_WIDE_CLUSTERS)),
+                  ik_mesh=make_track_mesh(MESH_TRACKS, devices=repeated(torch, dev, MESH_TRACKS)))
+    b = filter_bad_poses(seq.batch, cfg)
+    kps, valid = torch.as_tensor(b.kps, device=dev), torch.as_tensor(b.valid, device=dev)
+    plain = (*wide_run, None)
+    ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=dev, **meshes)
+    zero_launch_counts()
+    sharded = timed_run_offline(torch, ctx, kps, valid)
+    launches = launch_counts()
+    cmp = compare_runs(torch, plain, sharded)
+    tl = pipeline.filter_ghost_tracklets(tracker.assemble_tracklets(sharded[0]),
+                                         cfg.min_track_length)
+    same_tracklets = structure(tl) == structure(wide_res.tracklets)
+    n = kps.shape[0]
+
+    fcfg = dataclasses.replace(cfg, ik_solver="gj_fused")
+    fk, fv = kps[:MESH_FUSED_FRAMES], valid[:MESH_FUSED_FRAMES]
+    fplain = timed_run_offline(torch, tracker.TrackerContext.build(seq.cameras, fcfg,
+                                                                   device=dev), fk, fv)
+    fctx = tracker.TrackerContext.build(seq.cameras, fcfg, device=dev, **meshes)
+    zero_launch_counts()
+    fsharded = timed_run_offline(torch, fctx, fk, fv)
+    fused_launches = launch_counts()
+    fcmp = compare_runs(torch, fplain, fsharded)
+    emit({"phase": "mesh_wide", "frames": n, "cluster_mesh": MESH_WIDE_CLUSTERS,
+          "track_mesh": MESH_TRACKS, "devices": str(dev),
+          "fps": n / sharded[2], "unsharded_fps_wide_phase": wide_res.fps, **cmp,
+          "pose_tol_m": MESH_POSE_TOL_M, "tracklets_equal_wide_phase": same_tracklets,
+          "launches": launches, "launches_per_frame": {k: v / n for k, v in launches.items()},
+          "gj_fused": {"frames": MESH_FUSED_FRAMES, **fcmp, "launches": fused_launches,
+                       "fps": MESH_FUSED_FRAMES / fsharded[2],
+                       "unsharded_fps": MESH_FUSED_FRAMES / fplain[2]}})
+    if not (cmp["decisions_equal"] and cmp["x_bin_equal"] and same_tracklets
+            and cmp["max_pose_diff_m"] <= MESH_POSE_TOL_M):
+        raise AssertionError("the cluster- and track-sharded wide run differs from the unsharded")
+    if launches["als_batched"] != MESH_WIDE_CLUSTERS * n or launches["gj_solve"] == 0:
+        raise AssertionError("B3 must launch once a frame on each cluster-mesh entry, B2 run")
+    if not (fcmp["decisions_equal"] and fcmp["x_bin_equal"]
+            and fcmp["max_pose_diff_m"] <= MESH_POSE_TOL_M and fused_launches["fused_normal_gj"]):
+        raise AssertionError("the track-sharded gj_fused run differs or launched no B4")
+    return launches, fused_launches
+
+
+def phase_mesh_cameras(torch, dev):
+    """PipelineConfig.wide(32) (one cluster: B1 at N 336) on the wide scene
+    at 32 cameras, the similarity blocks camera-sharded over MESH_CAMERAS
+    entries and the LM over MESH_TRACKS, every entry cuda:0, against the
+    unsharded run on the card: x_bin, decisions and the similarity blocks
+    of frame 0 bit-equal; frames/s of both."""
+    from multiview_motion_capture_torch import tracker
+    from multiview_motion_capture_torch.config import PipelineConfig
+    from multiview_motion_capture_torch.data.ingest import filter_bad_poses
+    from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
+    from multiview_motion_capture_torch.parallel.sharded_solvers import (
+        make_axis_mesh,
+        make_track_mesh,
+    )
+
+    cfg = PipelineConfig.wide(32, max_frames=None)
+    seq = synthetic_sequence(cfg=cfg, **dict(WIDE_SCENE, n_views=32))
+    b = filter_bad_poses(seq.batch, cfg)
+    kps, valid = torch.as_tensor(b.kps, device=dev), torch.as_tensor(b.valid, device=dev)
+    pctx = tracker.TrackerContext.build(seq.cameras, cfg, device=dev)
+    ctx = tracker.TrackerContext.build(
+        seq.cameras, cfg, device=dev,
+        mesh=make_axis_mesh(MESH_CAMERAS, "dp", devices=repeated(torch, dev, MESH_CAMERAS)),
+        ik_mesh=make_track_mesh(MESH_TRACKS, devices=repeated(torch, dev, MESH_TRACKS)))
+    state0 = tracker.TrackerState.zeros(cfg, device=dev)
+    blocks = {}
+    for name, fn in (("spatial", lambda c: tracker._spatial_similarity(c, kps[0], valid[0])[0]),
+                     ("spatial_time", lambda c: tracker._spatial_time_similarity(
+                         c, state0, kps[0], valid[0])[0])):
+        blocks[name] = torch.equal(fn(pctx), fn(ctx))
+    plain = timed_run_offline(torch, pctx, kps, valid)
+    zero_launch_counts()
+    sharded = timed_run_offline(torch, ctx, kps, valid)
+    launches = launch_counts()
+    cmp = compare_runs(torch, plain, sharded)
+    n = kps.shape[0]
+    emit({"phase": "mesh_cameras", "frames": n, "n_views": 32, "n_matrix": cfg.n_matrix,
+          "camera_mesh": MESH_CAMERAS, "track_mesh": MESH_TRACKS, "devices": str(dev),
+          "fps": n / sharded[2], "unsharded_fps": n / plain[2],
+          "frame0_similarity_bit_equal": blocks, **cmp, "pose_tol_m": MESH_POSE_TOL_M,
+          "als_iters_at_cap_frames": int((sharded[0].als_iters >= cfg.als_max_iter).sum()),
+          "launches": launches, "b1_launches_at_n336": launches["als"]})
+    if not (all(blocks.values()) and cmp["decisions_equal"] and cmp["x_bin_equal"]
+            and cmp["max_pose_diff_m"] <= MESH_POSE_TOL_M):
+        raise AssertionError("the camera-sharded run differs from the unsharded")
+    if cfg.n_matrix != 336 or launches["als"] != n or launches["gj_solve"] == 0:
+        raise AssertionError("B1 must launch once a frame at N 336, B2 run")
+    return launches
+
+
+def phase_mesh_spec(torch, dev, seq, cfg, slice_res):
+    """`pipeline.run(mesh_spec=...)` through the visible-device route on the
+    SHELF_BENCH scene: a camera mesh and a track mesh of one card each, its
+    tracklets bit-equal to the `slice` phase's.  A cluster mesh needs
+    camera clusters, which SHELF_BENCH has not (JAX's error); a spec wider
+    than the visible cards raises JAX's "only N devices visible"."""
+    from multiview_motion_capture_torch import pipeline
+
+    spec = "cameras=1,tracks=1"
+    zero_launch_counts()
+    res = pipeline.run(seq.batch, seq.cameras, cfg, mesh_spec=spec, device=dev)
+    launches = launch_counts()
+    equal = tracklets_equal(res.tracklets, slice_res.tracklets)
+    want = {"cameras=1,clusters=1,tracks=1": "cluster_mesh needs assoc_clusters > 1"}
+    if torch.cuda.device_count() == 1:
+        want["tracks=2"] = "MeshSpec.tracks=2 but only 1 devices visible"
+    errors = {}
+    for bad in want:
+        try:
+            pipeline.run(seq.batch, seq.cameras, cfg, mesh_spec=bad, device=dev)
+        except ValueError as e:
+            errors[bad] = str(e)
+    emit({"phase": "mesh_spec", "spec": spec, "frames": res.n_frames, "fps": res.fps,
+          "tracklets_bit_equal_slice": equal, "errors": errors, "launches": launches})
+    if not equal:
+        raise AssertionError("pipeline.run(mesh_spec=) differs from the slice run")
+    if errors != want:
+        raise AssertionError(f"mesh spec errors differ from the JAX package's: {errors}")
+    if launches["als"] == 0 or launches["gj_solve"] == 0:
+        raise AssertionError("mesh_spec launched no B1 or B2")
+    return launches
+
+
+def phase_streams(torch, dev):
+    """STREAMS SHELF_BENCH streams (the SCENE's rig at seeds 0-3) over a
+    streams mesh of as many cuda:0 entries, one worker thread and CUDA
+    stream each: each stream bit-equal to `run_offline` on it alone; the
+    aggregate frames/s beside one stream's (host-bound under the GIL on one
+    card: no gain is expected)."""
+    import numpy as np
+
+    from multiview_motion_capture_torch import tracker
+    from multiview_motion_capture_torch.config import SHELF_BENCH
+    from multiview_motion_capture_torch.data.ingest import filter_bad_poses
+    from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
+    from multiview_motion_capture_torch.parallel.streams import (
+        assemble_stream_tracklets,
+        make_streams_mesh,
+        run_offline_streams,
+    )
+
+    cfg = dataclasses.replace(SHELF_BENCH, max_frames=None)
+    seqs = [synthetic_sequence(cfg=cfg, **dict(SCENE, n_frames=STREAMS["n_frames"], seed=s))
+            for s in STREAMS["seeds"]]
+    bs = [filter_bad_poses(s.batch, cfg) for s in seqs]
+    kps = np.stack([b.kps for b in bs])
+    valid = np.stack([b.valid for b in bs])
+    ctx = tracker.TrackerContext.build(seqs[0].cameras, cfg, device=dev)
+    refs, one_s = [], []
+    for b in bs:
+        t0 = time.perf_counter()
+        _, o = tracker.run_offline(ctx, b.kps, b.valid)
+        torch.cuda.synchronize()
+        one_s.append(time.perf_counter() - t0)
+        refs.append(tracker.outputs_to_numpy(o))
+    mesh = make_streams_mesh(STREAMS["n_streams"],
+                             devices=repeated(torch, dev, STREAMS["n_streams"]))
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    _, out = run_offline_streams(ctx, kps, valid, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    out_np = tracker.outputs_to_numpy(out)
+    equal = [all(np.array_equal(getattr(out_np, f)[i], getattr(r, f))
+                 for f in tracker.FrameOutput._fields) for i, r in enumerate(refs)]
+    per_stream = assemble_stream_tracklets(out)
+    F = STREAMS["n_frames"]
+    emit({"phase": "streams", "streams": len(seqs), "frames_each": F, "devices": str(dev),
+          "aggregate_fps": len(seqs) * F / wall, "one_stream_fps": F / statistics.median(one_s),
+          "streams_bit_equal_run_offline": equal,
+          "tracklets_per_stream": [len(t) for t in per_stream], "launches": launches})
+    if not all(equal):
+        raise AssertionError("a stream differs from run_offline on it alone")
+    if launches["als"] != len(seqs) * F or launches["gj_solve"] == 0:
+        raise AssertionError("the streams launched B1 other than once a frame, or no B2")
+    return launches
+
+
+def mesh_train_run(torch, dev, mesh, cfg, images, kps, mask, net0, steps):
+    """`steps` sharded steps from `net0`'s weights: (losses, per-step
+    gradients and the final parameters, gathered, on the host)."""
+    from multiview_motion_capture_torch.parallel.train import sharded_train_step
+
+    step, params, opt, data = sharded_train_step(mesh, cfg, lr=MESH_TRAIN["lr"])
+    params.load_module(net0)
+    losses, grads = [], []
+    for _ in range(steps):
+        _, _, loss = step(params, opt, images, kps, mask)
+        losses.append(float(loss))
+        grads.append({k: v.cpu() for k, v in params.gather(grads=True).items()})
+    return losses, grads, {k: v.cpu() for k, v in params.gather().items()}, (step, params, opt)
+
+
+def phase_mesh_train(torch, dev):
+    """`parallel.sharded_train_step` on PoseNetConfig() in f32 compute,
+    batch 16, at (dp, tp) = (2, 2) over four cuda:0 entries and at (1, 1),
+    against the port's unsharded `train_step` from the same weights over
+    MESH_TRAIN steps: losses within MESH_TRAIN_LOSS_RTOL relative, each
+    step's gradients within MESH_TRAIN_GRAD_TOL of each leaf's largest
+    magnitude at the first step (from the same parameters; later steps'
+    gradients are printed: they are taken at parameters Adam has already
+    moved apart where a gradient sat at eps), parameters within 1 lr a step
+    (the entries more than MESH_TRAIN_AT_EPS_LR lr apart are counted);
+    (1, 1) bit-equal to the unsharded step; two (2, 2)
+    runs bit-equal; steps/s of each in the default bf16 compute."""
+    from multiview_motion_capture_torch.models.optim import AdamW
+    from multiview_motion_capture_torch.models.pose_net import (
+        PoseNetConfig,
+        gaussian_heatmaps,
+        init_posenet,
+        train_step,
+    )
+    from multiview_motion_capture_torch.parallel.mesh import Mesh
+
+    B, steps, lr = MESH_TRAIN["batch"], MESH_TRAIN["steps"], MESH_TRAIN["lr"]
+    cfg = dataclasses.replace(PoseNetConfig(), compute_dtype=torch.float32)
+    g = torch.Generator().manual_seed(MESH_TRAIN["seed"])
+    H, W = cfg.img_hw
+    Hh, Wh = cfg.heatmap_hw
+    images = torch.rand(B, H, W, 3, generator=g).to(dev)
+    kps = (torch.rand(B, 17, 2, generator=g) * torch.tensor([Wh, Hh])).to(dev)
+    mask = (torch.rand(B, 17, generator=g) > 0.2).float().to(dev)
+    net0 = init_posenet(cfg, torch.Generator().manual_seed(1))
+
+    net = init_posenet(cfg, torch.Generator().manual_seed(1)).to(dev)
+    opt = AdamW(net.parameters(), lr)
+    target = gaussian_heatmaps(kps, cfg.heatmap_hw)
+    ref_losses, ref_grads = [], []
+    for _ in range(steps):
+        ref_losses.append(float(train_step(net, opt, images, target, mask)))
+        ref_grads.append({k: p.grad.cpu() for k, p in net.named_parameters()})
+    ref_params = {k: p.detach().cpu() for k, p in net.named_parameters()}
+
+    out, runs = {}, {}
+    d = torch.device(dev)
+    meshes = {"2x2": Mesh([[d, d], [d, d]], ("dp", "tp")), "1x1": Mesh([[d]], ("dp", "tp"))}
+    for name, mesh in meshes.items():
+        losses, grads, params, _ = runs[name] = mesh_train_run(torch, dev, mesh, cfg, images,
+                                                               kps, mask, net0, steps)
+        loss_rel = max(abs(a / b - 1.0) for a, b in zip(losses, ref_losses))
+        grad_rel = [max(float((gs[k] - gr[k]).abs().max()
+                              / gr[k].abs().max().clamp(min=1e-30)) for k in gr)
+                    for gs, gr in zip(grads, ref_grads)]
+        p_lr = {k: (params[k] - ref_params[k]).abs() / lr for k in ref_params}
+        out[name] = {
+            "mesh": dict(mesh.shape), "losses": losses, "max_loss_rel_diff": loss_rel,
+            "max_grad_diff_of_leaf_max_by_step": grad_rel,
+            "max_param_diff_lr": max(float(v.max()) for v in p_lr.values()),
+            "entries_over_at_eps_lr": int(sum(int((v > MESH_TRAIN_AT_EPS_LR).sum())
+                                              for v in p_lr.values())),
+            "bit_equal_unsharded": (losses == ref_losses and all(
+                torch.equal(params[k], ref_params[k]) for k in ref_params))}
+    again = mesh_train_run(torch, dev, meshes["2x2"], cfg, images, kps, mask, net0, steps)
+    first = runs["2x2"]
+    out["2x2"]["two_runs_bit_equal"] = (again[0] == first[0] and all(
+        torch.equal(again[2][k], v) for k, v in first[2].items()))
+
+    # steps/s in the default bf16 compute, the host clock around a
+    # synchronised loop of MESH_TRAIN["timed_steps"] steps after one warm step
+    bcfg = PoseNetConfig()
+    rates = {}
+    for name, mesh in meshes.items():
+        _, _, _, (step, params, opt) = mesh_train_run(torch, dev, mesh, bcfg, images, kps,
+                                                      mask, init_posenet(bcfg, torch.Generator()
+                                                                         .manual_seed(1)), 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_TRAIN["timed_steps"]):
+            step(params, opt, images, kps, mask)
+        torch.cuda.synchronize()
+        rates[name] = MESH_TRAIN["timed_steps"] / (time.perf_counter() - t0)
+    bnet = init_posenet(bcfg, torch.Generator().manual_seed(1)).to(dev)
+    bopt = AdamW(bnet.parameters(), lr)
+    train_step(bnet, bopt, images, target, mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_TRAIN["timed_steps"]):
+        train_step(bnet, bopt, images, target, mask)
+    torch.cuda.synchronize()
+    rates["unsharded"] = MESH_TRAIN["timed_steps"] / (time.perf_counter() - t0)
+    emit({"phase": "mesh_train", "batch": B, "steps": steps, "lr": lr,
+          "unsharded_losses": ref_losses, **out, "steps_per_s_bf16": rates,
+          "loss_rtol": MESH_TRAIN_LOSS_RTOL, "grad_tol_of_leaf_max": MESH_TRAIN_GRAD_TOL})
+    s = out["2x2"]
+    if not (s["max_loss_rel_diff"] <= MESH_TRAIN_LOSS_RTOL
+            and s["max_grad_diff_of_leaf_max_by_step"][0] <= MESH_TRAIN_GRAD_TOL
+            and s["max_param_diff_lr"] <= steps and s["two_runs_bit_equal"]
+            and out["1x1"]["bit_equal_unsharded"]):
+        raise AssertionError("the dp x tp step is off the unsharded step")
+
+
 def main() -> int:
     import torch
 
@@ -2573,7 +2960,7 @@ def main() -> int:
     app = synthetic_appearance(aseq, **APPEARANCE_EMBED)
     checks = run_phase("kernels", phase_kernels, torch, "cuda", seq, cfg, dseq, dcfg,
                        aseq, acfg, app)
-    slice_launches = run_phase("slice", phase_slice, torch, "cuda", seq, cfg)
+    slice_launches, slice_res = run_phase("slice", phase_slice, torch, "cuda", seq, cfg)
     run_phase("parity", phase_parity, torch, "cuda", seq, cfg)
     run_phase("profile", phase_profile, torch, "cuda", seq, cfg)
 
@@ -2605,20 +2992,29 @@ def main() -> int:
 
     wcfg = PipelineConfig.wide(WIDE_SCENE["n_views"], max_frames=None)
     wseq = synthetic_sequence(cfg=wcfg, **WIDE_SCENE)
-    wide_launches, wide_res = run_phase("wide", phase_wide, torch, "cuda", wseq, wcfg)
+    wide_launches, wide_res, wide_run = run_phase("wide", phase_wide, torch, "cuda", wseq, wcfg)
     fused_launches = run_phase("wide_fused", phase_wide_fused, torch, "cuda", wseq, wcfg,
                                wide_res)
     run_phase("wide_parity", phase_parity, torch, "cuda", wseq, wcfg, WIDE_PARITY_FRAMES,
               "wide_parity")
     run_phase("wide_profile", phase_profile, torch, "cuda", wseq, wcfg, WIDE_PROFILE_FRAMES,
               "wide_profile")
+    mesh_wide_launches, mesh_fused_launches = run_phase("mesh_wide", phase_mesh_wide, torch,
+                                                        "cuda", wseq, wcfg, wide_res, wide_run)
+    mesh_cameras_launches = run_phase("mesh_cameras", phase_mesh_cameras, torch, "cuda")
+    mesh_spec_launches = run_phase("mesh_spec", phase_mesh_spec, torch, "cuda", seq, cfg,
+                                   slice_res)
+    streams_launches = run_phase("streams", phase_streams, torch, "cuda")
+    run_phase("mesh_train", phase_mesh_train, torch, "cuda")
 
     paths = {"slice": slice_launches, "default": default_launches, "no_ik": no_ik_launches,
              "stream": stream_launches, "appearance": app_launches,
              "checkpoint": checkpoint_launches, "detect": detect_launches,
              "cli": cli_launches, "detect_cli": detect_cli_launches,
              "debug_clustered": debug_launches, "wide": wide_launches,
-             "wide_fused": fused_launches}
+             "wide_fused": fused_launches, "mesh_wide": mesh_wide_launches,
+             "mesh_wide_fused": mesh_fused_launches, "mesh_cameras": mesh_cameras_launches,
+             "mesh_spec": mesh_spec_launches, "streams": streams_launches}
 
     def row(kernel, replaces, r, library_ms):
         by_path = {p: c[kernel.name] for p, c in paths.items() if c[kernel.name]}

@@ -4,9 +4,10 @@ surface, ref:src/motion_capture.py:1221-1256) over the port.
 
 `run` and `detect` run on the card unless `--cpu` is given (then every
 device step takes the plain PyTorch versions of the kernels on the CPU);
-without a GPU and without `--cpu` they raise.  Not ported: `run --mesh`
-(multi-device sharding) and the `bench` mode (the JAX package's benchmark
-driver).
+without a GPU and without `--cpu` they raise.  `run --mesh SPEC` shards
+the tracker's stages over the visible cards (over the CPU, repeated, with
+`--cpu`).  Not ported: the `bench` mode (the JAX package's benchmark,
+which reads the Shelf dataset).
 
 Examples:
   python -m multiview_motion_capture_torch prepare \
@@ -207,8 +208,7 @@ def main(argv=None) -> int:
         prog="multiview_motion_capture_torch",
         description="Multi-view motion capture on an NVIDIA GPU (PyTorch/CUDA); "
                     "--cpu runs on the CPU.",
-        epilog="Not ported from the JAX package's CLI: run --mesh (multi-device "
-               "sharding) and the bench mode.")
+        epilog="Not ported from the JAX package's CLI: the bench mode.")
     sub = parser.add_subparsers(dest="mode", required=True)
 
     p_prep = sub.add_parser("prepare", help="OpenPose JSON -> packed npz")
@@ -216,8 +216,7 @@ def main(argv=None) -> int:
     p_prep.add_argument("--out", required=True)
     _add_common(p_prep)
 
-    p_run = sub.add_parser("run", help="track + IK a sequence",
-                           epilog="--mesh (multi-device sharding) is not ported.")
+    p_run = sub.add_parser("run", help="track + IK a sequence")
     p_run.add_argument("--kps_dir", help="OpenPose JSON root (one dir per cam)")
     p_run.add_argument("--frames_npz", help="packed npz from prepare")
     p_run.add_argument("--calib_dir", required=True)
@@ -240,6 +239,12 @@ def main(argv=None) -> int:
                             "(default 0.03; flat optimum 0.03-0.05 across "
                             "extractors, docs/PERF.md r5); needs "
                             "--crossings")
+    p_run.add_argument("--mesh", default=None, metavar="SPEC",
+                       help="multi-device sharding of the tracker stages, "
+                            "e.g. cameras=4,clusters=8,tracks=8 (any "
+                            "subset); shards the similarity assembly / "
+                            "per-cluster ALS solves / per-slot IK solves "
+                            "over the visible devices")
     p_run.add_argument("--debug_dump", default=None, metavar="DIR",
                        help="per-frame association diagnostics: similarity "
                             "matrix csv/npz, ALS X + |X-0.5| margins, group "
@@ -334,7 +339,8 @@ def main(argv=None) -> int:
             parser.error("run needs --kps_dir or --frames_npz")
         res = pipeline.run(batch, cams, cfg, use_ik=not args.no_ik,
                            reid=args.reid, crossings=args.crossings,
-                           crossings_cfg=_crossings_cfg(args), device=device)
+                           crossings_cfg=_crossings_cfg(args), mesh_spec=args.mesh,
+                           device=device)
         out_dir = Path(args.out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         pipeline.save_tracklets(out_dir / "tracklets.pkl", res.tracklets)

@@ -43,6 +43,8 @@
 //
 // Limit: D <= 90 (kMaxD), as before; at D = 90 the 551 tiles fill 138 of
 // each block's 256 threads.
+#include <atomic>
+
 #include <cooperative_groups.h>
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
@@ -59,6 +61,7 @@ constexpr int kRowsPerChunk = 32;
 constexpr int kStages = 4;  // chunks in flight: 3 ahead of the one being summed
 constexpr int kMaxD = 90;
 constexpr int kTU = 2, kTV = 4;  // a Gram tile: kTU rows x kTV columns of G
+constexpr int kMaxDevices = 64;  // devices a process may launch on
 
 // Column tiles of G (D + 1 columns); kTV of them make the row stride of the
 // chunks and of G in floats.
@@ -249,13 +252,22 @@ template <class Tl>
 cudaError_t configure(int D, int T, cudaStream_t stream, cudaLaunchConfig_t* cfg,
                       cudaLaunchAttribute* attr) {
   const size_t bytes = smem_bytes(D, Tl::kSmemFloats);
-  static size_t allowed = 0;  // the largest size set so far for this instantiation
-  if (bytes > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(fused_normal_gj_kernel<Tl>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(bytes));
+  // the largest size set so far for this instantiation, per device: the
+  // attribute belongs to the current device, and launches for several
+  // devices may come from several host threads
+  static std::atomic<size_t> allowed[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes > allowed[dev].load()) {
+    err = cudaFuncSetAttribute(fused_normal_gj_kernel<Tl>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
-    allowed = bytes;
+    size_t seen = allowed[dev].load();
+    while (seen < bytes && !allowed[dev].compare_exchange_weak(seen, bytes)) {
+    }
   }
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(static_cast<unsigned>(T * kCluster));

@@ -53,12 +53,18 @@ class LaunchShape(NamedTuple):
     max_active_clusters: int  # clusters of this shape the card holds at once
 
 
+def launch_shape(n: int, rank: int, device=None) -> LaunchShape:
+    """How `csrc/als.cu` launches one (n, rank) problem on `device` (the
+    current card by default).  Raises if the card cannot hold even one such
+    cluster."""
+    return _launch_shape(n, rank, torch.cuda._utils._get_device_index(device, optional=True))
+
+
 @lru_cache(maxsize=None)
-def launch_shape(n: int, rank: int) -> LaunchShape:
-    """How `csrc/als.cu` launches one (n, rank) problem on the current card.
-    Raises if the card cannot hold even one such cluster."""
+def _launch_shape(n: int, rank: int, index: int) -> LaunchShape:
     out = (ctypes.c_int * 4)()
-    err = ALS.lib().als_launch_shape(n, rank, out)
+    with torch.cuda.device(index):
+        err = ALS.lib().als_launch_shape(n, rank, out)
     if err != 0:
         raise RuntimeError(f"als_launch_shape(n={n}, rank={rank}) failed: cudaError {err}")
     shape = LaunchShape(*out)
@@ -137,19 +143,23 @@ def _launch(kernel: CudaKernel, W: torch.Tensor, diag_mask: torch.Tensor,
     (else None: the kernel gets a null pointer and writes no X)."""
     n = W.shape[-1]
     C = W.shape[0] if W.dim() == 3 else 1
-    launch_shape(n, rank)   # raises where the card holds no such cluster
+    launch_shape(n, rank, W.device)   # raises where the card holds no such cluster
     x_bin = torch.empty((C, n, n), dtype=torch.bool, device=W.device)
     iters = torch.empty((C,), dtype=torch.int32, device=W.device)
     x = torch.empty((C, n, n), dtype=torch.float32, device=W.device) if return_x else None
-    stream = torch.cuda.current_stream(W.device).cuda_stream
-    err = kernel.lib().als_solve_f32(
-        W.data_ptr(), diag_mask.data_ptr(), init_A.data_ptr(), C, n, rank,
-        float(alpha), float(beta), float(mu0), float(tol), int(max_iter),
-        int(stable_iters), x_bin.data_ptr(), None if x is None else x.data_ptr(),
-        iters.data_ptr(), stream)
+    lib = kernel.lib()
+    # the C side sets the kernel's shared-memory and cluster attributes on
+    # the current device: make it W's
+    with torch.cuda.device(W.device):
+        stream = torch.cuda.current_stream(W.device).cuda_stream
+        err = lib.als_solve_f32(
+            W.data_ptr(), diag_mask.data_ptr(), init_A.data_ptr(), C, n, rank,
+            float(alpha), float(beta), float(mu0), float(tol), int(max_iter),
+            int(stable_iters), x_bin.data_ptr(), None if x is None else x.data_ptr(),
+            iters.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"als_solve_f32 launch failed: cudaError {err}")
-    kernel.launches += 1
+    kernel.count_launch()
     return x_bin, iters, x
 
 

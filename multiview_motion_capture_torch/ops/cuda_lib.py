@@ -10,10 +10,14 @@ suite imports every module and has no nvcc.
 
 A `CudaLibrary` is one source and its build.  A `CudaKernel` is one entry
 of the kernel table (one TPU kernel's counterpart): the library it launches
-and a plain integer `launches` count that its wrapper raises by one per
-kernel launch and nowhere else.  Two entries may launch one library: B1 and
-B3 (one ALS problem or C of them), B2 and B5 (the TPU package's two launch
-shapes of one Gauss-Jordan solve).  `gj_solve.cu` and `fused_normal_gj.cu`
+and a `launches` count that its wrapper raises by one per kernel launch
+(`count_launch`, under the entry's lock: `parallel.streams` launches from
+several threads) and nowhere else.  A wrapper launches under
+`torch.cuda.device(tensor.device)`, so the function attributes and
+occupancy queries of the C side, which act on the current device, see the
+device of the tensors it was given.  Two entries may launch one library:
+B1 and B3 (one ALS problem or C of them), B2 and B5 (the TPU package's two
+launch shapes of one Gauss-Jordan solve).  `gj_solve.cu` and `fused_normal_gj.cu`
 share their elimination through the header `gj_elim.cuh`.
 """
 from __future__ import annotations
@@ -125,6 +129,12 @@ class CudaKernel:
         self.name = name
         self.library = library
         self.launches = 0
+        self._lock = threading.Lock()
+
+    def count_launch(self) -> None:
+        """One launch more (thread-safe)."""
+        with self._lock:
+            self.launches += 1
 
     @property
     def source_path(self) -> Path:

@@ -23,7 +23,9 @@ Port of `multiview_motion_capture_tpu/ops/solve_pallas.py` (TPU kernels
 
 Every wrapper raises on anything its kernel does not take; there is no
 fallback from a CUDA tensor to a plain version.  `gj_launch_shape` and
-`fused_launch_shape` say how a side D launches on the current card.
+`fused_launch_shape` say how a side D launches on a card.  Each launch runs
+under `torch.cuda.device(tensor.device)`: the C side's attributes and
+queries act on the current device.
 """
 from __future__ import annotations
 
@@ -64,22 +66,34 @@ class FusedLaunchShape(NamedTuple):
     max_active_clusters: int  # clusters of this shape the card holds at once
 
 
+def gj_launch_shape(D: int, device=None) -> GjLaunchShape:
+    """How `csrc/gj_solve.cu` launches side D on `device` (the current card
+    by default)."""
+    return _gj_launch_shape(D, torch.cuda._utils._get_device_index(device, optional=True))
+
+
 @lru_cache(maxsize=None)
-def gj_launch_shape(D: int) -> GjLaunchShape:
-    """How `csrc/gj_solve.cu` launches side D."""
+def _gj_launch_shape(D: int, index: int) -> GjLaunchShape:
     out = (ctypes.c_int * 5)()
-    err = GJ_SOLVE.lib().gj_launch_shape(D, out)
+    with torch.cuda.device(index):
+        err = GJ_SOLVE.lib().gj_launch_shape(D, out)
     if err != 0:
         raise RuntimeError(f"gj_launch_shape(D={D}) failed: cudaError {err}")
     return GjLaunchShape(*out)
 
 
+def fused_launch_shape(D: int, device=None) -> FusedLaunchShape:
+    """How `csrc/fused_normal_gj.cu` launches side D on `device` (the
+    current card by default).  Raises if the card cannot hold even one such
+    cluster."""
+    return _fused_launch_shape(D, torch.cuda._utils._get_device_index(device, optional=True))
+
+
 @lru_cache(maxsize=None)
-def fused_launch_shape(D: int) -> FusedLaunchShape:
-    """How `csrc/fused_normal_gj.cu` launches side D.  Raises if the card
-    cannot hold even one such cluster."""
+def _fused_launch_shape(D: int, index: int) -> FusedLaunchShape:
     out = (ctypes.c_int * 6)()
-    err = FUSED_NORMAL_GJ.lib().fused_launch_shape(D, out)
+    with torch.cuda.device(index):
+        err = FUSED_NORMAL_GJ.lib().fused_launch_shape(D, out)
     if err != 0:
         raise RuntimeError(f"fused_launch_shape(D={D}) failed: cudaError {err}")
     shape = FusedLaunchShape(*out)
@@ -160,12 +174,14 @@ def fused_normal_solve(Jaug: torch.Tensor, lam: torch.Tensor,
     if T == 0:
         return x
     lib = FUSED_NORMAL_GJ.lib()
-    stream = torch.cuda.current_stream(Jaug.device).cuda_stream
-    err = lib.fused_normal_gj_f32(Jaug.data_ptr(), lam.data_ptr(), frozen_diag.data_ptr(),
-                                  x.data_ptr(), T, R, D, stream)
+    # the C side sets the kernel's shared-memory size on the current device
+    with torch.cuda.device(Jaug.device):
+        stream = torch.cuda.current_stream(Jaug.device).cuda_stream
+        err = lib.fused_normal_gj_f32(Jaug.data_ptr(), lam.data_ptr(),
+                                      frozen_diag.data_ptr(), x.data_ptr(), T, R, D, stream)
     if err != 0:
         raise RuntimeError(f"fused_normal_gj_f32 launch failed: cudaError {err}")
-    FUSED_NORMAL_GJ.launches += 1
+    FUSED_NORMAL_GJ.count_launch()
     return x
 
 
@@ -194,9 +210,11 @@ def batched_spd_solve(A: torch.Tensor, g: torch.Tensor,
     if T == 0:
         return x
     kernel = GJ_SOLVE if one_program else GJ_SOLVE_GRID
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = kernel.lib().gj_solve_f32(A.data_ptr(), g.data_ptr(), x.data_ptr(), T, D, stream)
+    lib = kernel.lib()
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = lib.gj_solve_f32(A.data_ptr(), g.data_ptr(), x.data_ptr(), T, D, stream)
     if err != 0:
         raise RuntimeError(f"gj_solve_f32 launch failed: cudaError {err}")
-    kernel.launches += 1
+    kernel.count_launch()
     return x

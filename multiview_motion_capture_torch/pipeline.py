@@ -1,12 +1,14 @@
 """End-to-end entry points: prepare / run / evaluate.
 
-Port of `multiview_motion_capture_tpu/pipeline.py` but its device mesh:
+Port of `multiview_motion_capture_tpu/pipeline.py`:
 
 - `prepare`: OpenPose JSON -> packed npz (`data.ingest`);
 - `run`: filter detections, track the whole sequence on the card (IK or
   triangulation mode, appearance embeddings), optionally in checkpointed
   chunks that a restarted run resumes, then the host post-passes (crossing
-  repair, the re-ID merge, the ghost filter) on the tracklets;
+  repair, the re-ID merge, the ghost filter) on the tracklets; with
+  `mesh_spec` the tracker's stages are sharded over several devices
+  (`parallel.mesh.MeshSpec`);
 - `filter_ghost_tracklets`, `mpjpe_between`, and the tracklet pickle
   writer/reader with the same schema of plain dicts, so files load in
   either package (or with neither installed).
@@ -96,7 +98,7 @@ def run(batch: FrameBatch, cams: CameraBank, cfg: Optional[PipelineConfig] = Non
         use_ik: bool = True, skip_first_frame: bool = False, app=None,
         checkpoint_dir: Optional[Path] = None, checkpoint_every: int = 100,
         reid: bool = False, reid_cfg=None, crossings: bool = False, crossings_cfg=None,
-        device="cuda") -> RunResult:
+        mesh_spec=None, device="cuda") -> RunResult:
     """Filter detections, then track and solve the whole sequence on
     `device` ("cuda" unless the caller asks for "cpu").  The sequence is
     tracked twice, as the JAX package does: the first pass pays the one-off
@@ -121,7 +123,14 @@ def run(batch: FrameBatch, cams: CameraBank, cfg: Optional[PipelineConfig] = Non
     (`reid=True`, or implied by `crossings`: the crossing repair's cuts are
     meant to be reassembled by the merge, with `reid_cfg`), and
     `filter_ghost_tracklets(cfg.min_track_length)`, in the JAX package's
-    order."""
+    order.
+
+    `mesh_spec` (a `parallel.mesh.MeshSpec` or its string form, e.g.
+    ``"cameras=4,clusters=8,tracks=8"``) shards the tracker's stages over
+    several devices: camera-sharded similarity, cluster-sharded ALS (B3 on
+    each device), track-sharded LM, composable in one context.  On a CUDA
+    `device` its meshes take the first n visible cards and it raises when
+    fewer are visible; on the CPU they repeat the CPU n times."""
     dev = resolve_device(device)
     cfg = cfg or PipelineConfig(n_views=batch.n_views)
     timer = StageTimer(dev)
@@ -149,9 +158,17 @@ def run(batch: FrameBatch, cams: CameraBank, cfg: Optional[PipelineConfig] = Non
     else:
         app = None
 
+    mesh_kwargs = {}
+    if mesh_spec is not None:
+        from multiview_motion_capture_torch.parallel.mesh import MeshSpec
+
+        if isinstance(mesh_spec, str):
+            mesh_spec = MeshSpec.parse(mesh_spec)
+        mesh_kwargs = mesh_spec.context_kwargs(dev)
+
     t0 = time.perf_counter()
     with timer.stage("build_context"):
-        ctx = TrackerContext.build(cams, cfg, use_ik=use_ik, device=dev)
+        ctx = TrackerContext.build(cams, cfg, use_ik=use_ik, device=dev, **mesh_kwargs)
         kps = torch.as_tensor(batch.kps[start:end], device=dev)
         valid = torch.as_tensor(batch.valid[start:end], device=dev)
         if app is not None:

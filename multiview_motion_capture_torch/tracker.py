@@ -2,14 +2,17 @@
 
 Port of `multiview_motion_capture_tpu/tracker.py` (the reference's
 `MvTracker` state machine, ref:src/motion_capture.py:288-963, as a function
-over a fixed-size slot-array state), every option but a device mesh: IK or
+over a fixed-size slot-array state), every option: IK or
 triangulation mode (`use_ik`), the constant-velocity association gate
 (`cfg.motion_gain`) and appearance evidence (`cfg.appearance_dim > 0`, one
 (V, P, D) embedding per detection and frame).  Association is one ALS solve
 over the whole [tracklets | detections] matrix, or on wide rigs
 (`cfg.assoc_clusters > 1`) one batched solve over interleaved camera
 clusters merged into the global matrix; `cfg.ik_max_views` caps each
-track's LM solve (or refined triangulation) at its best views.  Every
+track's LM solve (or refined triangulation) at its best views.  Device
+meshes (`TrackerContext.build(mesh=, cluster_mesh=, ik_mesh=)`, the
+`parallel` package) spread the camera rows of the similarity blocks, the
+cluster ALS solves and the per-slot LM solves over several devices.  Every
 per-frame quantity stays on the step's device; the host reads two flags per
 frame (whether any slot updates and whether any spawns) so that the LM
 solves run only when needed, and the LM loop checks every few iterations
@@ -31,6 +34,7 @@ Semantics parity map (ref:src/motion_capture.py):
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -49,6 +53,14 @@ from multiview_motion_capture_torch.ops import ik as ik_ops
 from multiview_motion_capture_torch.ops.consts import on_device
 from multiview_motion_capture_torch.ops.fk import Skeleton
 from multiview_motion_capture_torch.ops.triangulate import triangulate_points
+from multiview_motion_capture_torch.parallel.sharded_association import (
+    sharded_affinity,
+    sharded_st_epipolar,
+)
+from multiview_motion_capture_torch.parallel.sharded_solvers import (
+    sharded_cluster_als,
+    sharded_lm_solve,
+)
 from multiview_motion_capture_torch.pose_def import (
     KpsFormat,
     KpsType,
@@ -148,8 +160,8 @@ class FrameOutput(NamedTuple):
 
 
 def _check_config(cfg: PipelineConfig) -> None:
-    """Every option of the JAX tracker but a device mesh is ported; what is
-    left to check is the configuration itself."""
+    """Every option of the JAX tracker is ported; what is left to check is
+    the configuration itself."""
     if cfg.ik_solver not in ik_ops.SOLVERS:
         raise ValueError(f"ik_solver={cfg.ik_solver!r}; expected one of {ik_ops.SOLVERS}")
     if cfg.assoc_clusters > cfg.n_views:
@@ -208,10 +220,27 @@ class TrackerContext:
     cluster_init_A: Optional[Tensor] = None      # (Nc, rank)
     clusters: Tuple[ClusterViews, ...] = ()
     cluster_of_slot: Optional[Tensor] = None     # (V * P,) cluster of each detection slot
+    # optional device meshes (parallel/): the camera rows of the epipolar
+    # similarity blocks, the per-cluster ALS solves and the per-slot LM
+    # solves, each over its own 1-axis mesh; with each, a copy of the
+    # constants its devices read, on those devices (`mesh_consts`)
+    mesh: object = None
+    mesh_axis: str = "dp"
+    cluster_mesh: object = None
+    cluster_mesh_axis: str = "cl"
+    ik_mesh: object = None
+    ik_mesh_axis: str = "tk"
+    mesh_consts: Optional[Dict[str, tuple]] = None
 
     @classmethod
     def build(cls, cams: CameraBank, cfg: PipelineConfig, use_ik: bool = True,
-              device="cuda") -> "TrackerContext":
+              device="cuda", mesh=None, mesh_axis: str = "dp", cluster_mesh=None,
+              cluster_mesh_axis: str = "cl", ik_mesh=None,
+              ik_mesh_axis: str = "tk") -> "TrackerContext":
+        """The context on `device`; `mesh`, `cluster_mesh` and `ik_mesh`
+        (`parallel.mesh.Mesh`es, each sharding on the named axis) spread
+        the camera-sharded similarity, the cluster ALS and the per-slot LM
+        over their devices."""
         dev = resolve_device(device)
         _check_config(cfg)
         if cams.n_views != cfg.n_views:
@@ -235,8 +264,80 @@ class TrackerContext:
             consts["cluster_diag_mask"] = assoc.block_diag_mask(
                 (cfg.max_tracks,) + (cfg.max_people,) * Vc)
             consts["cluster_init_A"] = assoc.default_init_factor(nc, cfg.als_max_rank)
-        return context_constants_from_numpy(cfg, cams, consts, use_ik=use_ik,
-                                            device=dev)
+        ctx = context_constants_from_numpy(cfg, cams, consts, use_ik=use_ik, device=dev)
+        return ctx.with_meshes(mesh=mesh, mesh_axis=mesh_axis, cluster_mesh=cluster_mesh,
+                               cluster_mesh_axis=cluster_mesh_axis, ik_mesh=ik_mesh,
+                               ik_mesh_axis=ik_mesh_axis)
+
+    def with_meshes(self, mesh=None, mesh_axis: str = "dp", cluster_mesh=None,
+                    cluster_mesh_axis: str = "cl", ik_mesh=None,
+                    ik_mesh_axis: str = "tk") -> "TrackerContext":
+        """This context with the given device meshes, validated as the JAX
+        package's `TrackerContext.build` validates them (same messages),
+        and each mesh device's constants copied to it."""
+        from multiview_motion_capture_torch.parallel import sharded_association as sa
+        from multiview_motion_capture_torch.parallel.sharded_solvers import replicate
+
+        cfg = self.cfg
+        if mesh is not None and cfg.n_views % mesh.shape[mesh_axis] != 0:
+            raise ValueError(
+                f"n_views={cfg.n_views} not divisible by mesh axis "
+                f"{mesh_axis}={mesh.shape[mesh_axis]}"
+            )
+        if cluster_mesh is not None:
+            if cfg.assoc_clusters <= 1:
+                raise ValueError("cluster_mesh needs assoc_clusters > 1")
+            n_cl = cluster_mesh.shape[cluster_mesh_axis]
+            if cfg.assoc_clusters % n_cl != 0:
+                raise ValueError(
+                    f"assoc_clusters={cfg.assoc_clusters} not divisible by "
+                    f"cluster mesh axis {cluster_mesh_axis}={n_cl}"
+                )
+        if ik_mesh is not None:
+            if not self.use_ik:
+                raise ValueError("ik_mesh needs use_ik=True")
+            n_tk = ik_mesh.shape[ik_mesh_axis]
+            if cfg.max_tracks % n_tk != 0:
+                raise ValueError(
+                    f"max_tracks={cfg.max_tracks} not divisible by ik mesh "
+                    f"axis {ik_mesh_axis}={n_tk}"
+                )
+        consts = {}
+        if mesh is not None:
+            # the blocks are formed in WORK_DTYPE, as the unsharded path forms them
+            consts["F_spatial"] = sa.affinity_constants(self.F_spatial, mesh, mesh_axis,
+                                                        WORK_DTYPE)
+            consts["F_det"] = sa.st_epipolar_constants(self.F_det, mesh, mesh_axis,
+                                                       WORK_DTYPE)
+        if cluster_mesh is not None:
+            devs = cluster_mesh.axis_devices(cluster_mesh_axis)
+            consts["cluster_diag_mask"] = replicate(self.cluster_diag_mask, devs)
+            consts["cluster_init_A"] = replicate(self.cluster_init_A, devs)
+        if ik_mesh is not None:
+            consts["skel"] = tuple(Skeleton(*(t.to(d) for t in self.skel))
+                                   for d in ik_mesh.axis_devices(ik_mesh_axis))
+        return dataclasses.replace(
+            self, mesh=mesh, mesh_axis=mesh_axis, cluster_mesh=cluster_mesh,
+            cluster_mesh_axis=cluster_mesh_axis, ik_mesh=ik_mesh,
+            ik_mesh_axis=ik_mesh_axis, mesh_consts=consts or None)
+
+    def to(self, device) -> "TrackerContext":
+        """A copy of this context with its constants on `device` (its meshes
+        and their per-device constants unchanged)."""
+        dev = torch.device(device)
+
+        def mv(t):
+            return None if t is None else t.to(dev)
+
+        return dataclasses.replace(
+            self, cams=self.cams.to(dev), skel=Skeleton(*(t.to(dev) for t in self.skel)),
+            F_spatial=mv(self.F_spatial), F_det=mv(self.F_det), K_inv=mv(self.K_inv),
+            diag_mask=mv(self.diag_mask), init_A=mv(self.init_A), device=dev,
+            cluster_diag_mask=mv(self.cluster_diag_mask),
+            cluster_init_A=mv(self.cluster_init_A),
+            clusters=tuple(ClusterViews(views=mv(c.views), view_valid=mv(c.view_valid),
+                                        n_real=c.n_real) for c in self.clusters),
+            cluster_of_slot=mv(self.cluster_of_slot))
 
 
 def context_constants_from_numpy(cfg: PipelineConfig, cams: CameraBank,
@@ -437,11 +538,16 @@ def _spatial_time_similarity(ctx: TrackerContext, state: TrackerState, kps: Tens
     dev = kps.device
     nan = float("nan")
 
-    # 2D-2D epipolar block (V, P, V, P)
-    ka = kps[:, :, None, None]
-    kb = kps[None, None]
-    Fab = F_det[:, None, :, None]
-    d22 = geom.masked_symmetric_epipolar_error(ka, kb, Fab, cfg.epipolar_min_kps_score)
+    # 2D-2D epipolar block (V, P, V, P); camera-sharded over ctx.mesh on
+    # the full rig (a cluster's subset is never sharded)
+    if ctx.mesh is not None and view_idx is None:
+        d22 = sharded_st_epipolar(kps, F_det, cfg.epipolar_min_kps_score, ctx.mesh,
+                                  ctx.mesh_axis, consts=ctx.mesh_consts["F_det"])
+    else:
+        ka = kps[:, :, None, None]
+        kb = kps[None, None]
+        Fab = F_det[:, None, :, None]
+        d22 = geom.masked_symmetric_epipolar_error(ka, kb, Fab, cfg.epipolar_min_kps_score)
     if app is not None:
         d22 = d22 + _appearance_penalty_d22(app_gain, app)
     same_view = torch.eye(V, dtype=torch.bool, device=dev)[:, None, :, None]
@@ -504,7 +610,11 @@ def _spatial_similarity(ctx: TrackerContext, kps: Tensor, det_valid: Tensor,
     N = T + V * P
     dev = kps.device
 
-    d = geom.projected_distance_all_pairs(kps.to(WORK_DTYPE), F_spatial.to(WORK_DTYPE))
+    if ctx.mesh is not None and view_idx is None:
+        d = sharded_affinity(kps.to(WORK_DTYPE), F_spatial, ctx.mesh, ctx.mesh_axis,
+                             consts=ctx.mesh_consts["F_spatial"])
+    else:
+        d = geom.projected_distance_all_pairs(kps.to(WORK_DTYPE), F_spatial.to(WORK_DTYPE))
     same_view = torch.eye(V, dtype=torch.bool, device=dev)[:, None, :, None]
     d = torch.where(same_view, torch.full_like(d, cfg.spatial_fill_distance), d)
     dst = d.reshape(V * P, V * P)
@@ -641,12 +751,20 @@ def _clustered_association(ctx: TrackerContext, state: TrackerState, kps: Tensor
                                         view_idx=cl.views, view_valid=cl.view_valid,
                                         app=app, app_gain=gain)
         subs.append(torch.where(any_alive, sim_st, sim_sp))
-    als = als_kernel.match_als_batched(
-        torch.stack(subs), ctx.cluster_diag_mask, ctx.cluster_init_A,
-        alpha=cfg.als_alpha, beta=cfg.als_beta, mu0=cfg.als_mu,
-        tol=cfg.als_tol, max_iter=cfg.als_max_iter,
-        stable_iters=cfg.als_stable_iters)
-    xb = als.x_bin                                              # (C, Nc, Nc)
+    als_kw = dict(alpha=cfg.als_alpha, beta=cfg.als_beta, mu0=cfg.als_mu,
+                  tol=cfg.als_tol, max_iter=cfg.als_max_iter,
+                  stable_iters=cfg.als_stable_iters)
+    if ctx.cluster_mesh is not None:
+        # clusters -> devices: one B3 launch per device on its clusters,
+        # each problem's result that of its solo solve
+        xb, n_iters = sharded_cluster_als(
+            torch.stack(subs), ctx.mesh_consts["cluster_diag_mask"],
+            ctx.mesh_consts["cluster_init_A"], ctx.cluster_mesh, ctx.cluster_mesh_axis,
+            **als_kw)
+    else:
+        als = als_kernel.match_als_batched(torch.stack(subs), ctx.cluster_diag_mask,
+                                           ctx.cluster_init_A, **als_kw)
+        xb, n_iters = als.x_bin, als.n_iters                   # (C, Nc, Nc), (C,)
 
     # scatter: cluster c's detections are the strided views c::C of the
     # (V, P) grid; the pad views (if any) sit at the end and are dropped.
@@ -690,7 +808,7 @@ def _clustered_association(ctx: TrackerContext, state: TrackerState, kps: Tensor
     cross = ctx.cluster_of_slot[:, None] != ctx.cluster_of_slot[None, :]
     link = (d < cfg.cluster_merge_m) & cross & ok[:, None] & ok[None, :]
     x_global[T:, T:] |= link
-    return Association(x_bin=x_global, n_iters=als.n_iters.sum(dtype=i32),
+    return Association(x_bin=x_global, n_iters=n_iters.sum(dtype=i32),
                        elem_valid=elem_valid, d23=d23, any_alive=any_alive)
 
 
@@ -803,6 +921,13 @@ def make_update(ctx: TrackerContext):
     top_k = cfg.ik_max_views if (cfg.ik_max_views is not None
                                  and cfg.ik_max_views < V) else 0
     wd = WORK_DTYPE
+    if ctx.ik_mesh is not None:
+        # track slots -> devices: each device LM-solves its T/n slots
+        solve_fn = functools.partial(sharded_lm_solve, mesh=ctx.ik_mesh,
+                                     axis=ctx.ik_mesh_axis)
+        solve_skel = ctx.mesh_consts["skel"]
+    else:
+        solve_fn, solve_skel = ik_ops.solve_two_stage, skel
 
     def cold_triangulation(obs: Tensor, w: Tensor) -> Tensor:
         """Triangulated COCO+spine points (T, 18, 4) of each slot's matched
@@ -966,8 +1091,8 @@ def make_update(ctx: TrackerContext):
         if ctx.use_ik:
             state_params = ik_ops.IkParams(state.root, state.euler, state.side_lens)
             if any_update:
-                warm_params, warm_joints = ik_ops.solve_two_stage(
-                    state_params, skel, upd_obs_k, upd_w_k, P_upd,
+                warm_params, warm_joints = solve_fn(
+                    state_params, solve_skel, upd_obs_k, upd_w_k, P_upd,
                     n_iters=cfg.ik_warm_iters, stages=cfg.ik_warm_stages, **lm_kw)
             else:
                 warm_params, warm_joints = state_params, state.pose3d
@@ -980,8 +1105,8 @@ def make_update(ctx: TrackerContext):
                 cold_euler = ik_ops.geometric_init(tri, skel.to(wd)).to(kps.dtype)
                 init = ik_ops.IkParams(root=cold_roots, euler=cold_euler,
                                        side_lens=skel.side_bone_lens.expand(T, -1))
-                cold_params, cold_joints = ik_ops.solve_two_stage(
-                    init, skel, new_obs_k, new_w_k, P_new,
+                cold_params, cold_joints = solve_fn(
+                    init, solve_skel, new_obs_k, new_w_k, P_new,
                     n_iters=cfg.ik_cold_iters, stages=cfg.ik_cold_stages, **lm_kw)
             else:
                 cold_params, cold_joints = state_params, state.pose3d

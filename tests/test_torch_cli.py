@@ -44,13 +44,16 @@ def test_config_and_crossings_flags_match_jax(preset, n_views, kw):
 
 
 def test_unported_modes_and_flags_are_absent(capsys):
+    """`bench` is the one JAX mode left unported (it reads the Shelf
+    dataset); the help names it.  `run --mesh` is ported
+    (`test_run_mesh_spec`)."""
     with pytest.raises(SystemExit):
         t_cli.main(["bench"])
     with pytest.raises(SystemExit):
-        t_cli.main(["run", "--calib_dir", "c", "--out_dir", "o", "--mesh", "cameras=2"])
-    with pytest.raises(SystemExit):
         t_cli.main(["--help"])
-    assert "--mesh" in capsys.readouterr().out     # named as not ported
+    out = capsys.readouterr().out
+    assert "Not ported from the JAX package's CLI: the bench mode." in out
+    assert "--mesh" not in out
 
 
 @pytest.fixture(scope="module")
@@ -115,6 +118,42 @@ def test_run_matches_jax(scene, tmp_path, capsys):
             solved = ev[:, None] & ev[None, :]
             np.testing.assert_array_equal(a["x_bin"][solved], b["x_bin"][solved])
             assert np.abs(a["x"] - b["x"])[solved].max() <= X_TOL
+
+
+def test_run_mesh_spec(scene, tmp_path, monkeypatch, capsys):
+    """`run --mesh tracks=2 --cpu` hands the spec to `pipeline.run` (a
+    2-way track mesh over the CPU), with the tracklets of the run without
+    it; a bad spec raises JAX's CLI's error, from the spec's parse or the
+    context's divisibility check."""
+    torch.set_num_threads(1)
+    specs = []
+    run = t_pipeline.run
+
+    def spy(*args, **kw):
+        specs.append(kw.get("mesh_spec"))
+        return run(*args, **kw)
+
+    monkeypatch.setattr(t_pipeline, "run", spy)
+    common = ["--kps_dir", str(scene / "kps"), "--calib_dir", str(scene / "calibs"), "--cpu",
+              "--max_frames", "4", "--max_people", "4", "--max_tracks", "6"]
+    assert t_cli.main(["run", "--out_dir", str(tmp_path / "m"), "--mesh", "tracks=2",
+                       *common]) == 0
+    assert t_cli.main(["run", "--out_dir", str(tmp_path / "p"), *common]) == 0
+    assert specs == ["tracks=2", None]
+    m = t_pipeline.load_tracklets(tmp_path / "m" / "tracklets.pkl")
+    p = t_pipeline.load_tracklets(tmp_path / "p" / "tracklets.pkl")
+    assert len(m) == len(p) > 0
+    for x, y in zip(m, p):
+        assert x.frame_idxs == y.frame_idxs
+        np.testing.assert_array_equal(x.matched_pose, y.matched_pose)
+        np.testing.assert_array_equal(x.poses_3d, y.poses_3d)
+    for bad in ("tracks=two", "tracks=4", "gpus=2"):
+        argv = ["run", "--out_dir", str(tmp_path / "bad"), "--mesh", bad, *common]
+        with pytest.raises(ValueError) as te:
+            t_cli.main(argv)
+        with pytest.raises(ValueError) as je:
+            j_cli.main(argv)
+        assert str(te.value) == str(je.value), bad
 
 
 def test_detect_on_png_frames(tmp_path, capsys):

@@ -560,3 +560,62 @@ def test_head_step_card_equals_cpu(cuda):
     np.testing.assert_allclose(lc, lq, rtol=1e-5)
     for a, b in zip(pc, pq):
         assert np.abs(a - b).max() <= 0.05 * 1e-3
+
+
+def _every_kernel_once(dev):
+    """B1 (N 336, a cluster of 16), B3, B2, B5 and B4 once each on `dev`:
+    each launch's result against its plain version."""
+    W, mask, init = _als_inputs(dev, (16,) + (10,) * 32, 32, 2, seed=9)
+    kw = dict(max_iter=20, stable_iters=10)
+    one = als_kernel.match_als(W[0], mask, init, **kw)
+    assert torch.equal(one.x_bin, association.match_als(W[0], mask, init, **kw).x_bin)
+    _assert_batched_equals_plain_and_solo(W, mask, init, **kw)
+    A, g = _spd_systems(dev, 16, 68, seed=3)
+    for one_program in (True, False):
+        assert torch.equal(solve_kernel.batched_spd_solve(A, g, one_program),
+                           solve_kernel.gauss_jordan_plain(A, g))
+    Jaug, lam, frozen = _lm_inputs(dev, 16, 512, 68, 2)
+    assert torch.equal(solve_kernel.fused_normal_solve(Jaug, lam, frozen),
+                       solve_kernel.fused_normal_plain(Jaug, lam, frozen))
+
+
+def test_kernels_launch_from_worker_threads(cuda):
+    """Every wrapper from four threads at once (as `parallel.streams`
+    launches), each on a stream of its own: results equal the plain
+    versions and the launch counts add up (the increment is locked)."""
+    import threading
+
+    before = {k.name: k.launches for k in cuda_lib.ALL_KERNELS}
+    errors = []
+
+    def worker():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                _every_kernel_once(cuda)
+                torch.cuda.current_stream(cuda).synchronize()
+        except BaseException as e:   # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    # per thread: B1 three times (once alone, then as the solo reference of
+    # each of B3's two problems), B3 once, B2 and B5 once each, B4 once
+    want = {"als": 3, "als_batched": 1, "gj_solve": 1, "gj_solve_grid": 1,
+            "fused_normal_gj": 1}
+    assert {k.name: k.launches - before[k.name] for k in cuda_lib.ALL_KERNELS} == {
+        n: 4 * c for n, c in want.items()}
+
+
+def test_kernels_launch_on_a_second_device():
+    """Tensors on cuda:1 launch there while cuda:0 is current: the kernels'
+    shared-memory and cluster attributes are set on the tensor's device."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    cuda_lib.build_all()
+    torch.cuda.set_device(0)
+    _every_kernel_once(torch.device("cuda", 1))
+    assert torch.cuda.current_device() == 0

@@ -52,14 +52,15 @@ def _public_names(path: Path):
 
 
 def test_port_modules_mirror_the_jax_package():
-    """Every module of the JAX package but `parallel/` (multi-device) has a
+    """Every module of the JAX package, `parallel/` included, has a
     counterpart at the same relative path (the kernel modules at theirs),
     holding every public function and class of the JAX module (read from
     its source; JAX is not imported)."""
     jax_pkg = PKG.parent / "multiview_motion_capture_tpu"
-    rels = [p.relative_to(jax_pkg).as_posix() for p in sorted(jax_pkg.rglob("*.py"))
-            if p.relative_to(jax_pkg).parts[0] != "parallel"]
-    assert len(rels) >= 45 and "debug.py" in rels and "utils/viz.py" in rels
+    rels = [p.relative_to(jax_pkg).as_posix() for p in sorted(jax_pkg.rglob("*.py"))]
+    assert len(rels) >= 51 and "debug.py" in rels and "utils/viz.py" in rels
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_association.py",
+            "parallel/sharded_solvers.py", "parallel/streams.py", "parallel/train.py"} <= set(rels)
     for rel in rels:
         port_rel = KERNEL_MODULES.get(rel, rel)
         assert (PKG / port_rel).is_file(), rel
@@ -146,8 +147,8 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise():
-    """No option of the JAX tracker but a device mesh is left unported, so
-    none raises NotImplementedError any more: each builds.  What cannot run
+    """No option of the JAX tracker is left unported, so none raises
+    NotImplementedError any more: each builds.  What cannot run
     still raises: more camera clusters than cameras, an unknown LM solver."""
     cfg = dataclasses.replace(SHELF_BENCH, n_views=3)
     cams = synthetic_sequence(n_frames=1, n_people=1, n_views=3, cfg=cfg).cameras
