@@ -20,7 +20,7 @@ each with the launch counters set to 0 just before it and read just after:
 - `no_ik`: the same in triangulation mode (`use_ik=False`), its
   reprojection on the 17 COCO joints against the JAX skill's 3 px bound;
 - `stream`: the streaming `MvTracker` (with the motion gate,
-  `motion_gain=1.0`) over 60 frames of that scene, one `update` per frame
+  `motion_gain=1.0`) over 30 frames of that scene, one `update` per frame
   and `update_batch` in chunks of 8 (the tail padded), each bit-equal to
   `run_offline`; the latency of one `update`;
 - `appearance`: `pipeline.run` with appearance evidence on the identity
@@ -56,7 +56,7 @@ each with the launch counters set to 0 just before it and read just after:
   its held-out cosine gap gated as tests/test_appearance.py gates the
   shipped head and held near the JAX package's on the same data;
 - `cli`: the CLI as a user runs it (`python -m multiview_motion_capture_torch`,
-  child processes, on the card): the default preset's scene cut to 60
+  child processes, on the card): the default preset's scene cut to 40
   frames and written as calibration and OpenPose files, `prepare` (its npz
   equal to `load_openpose_dir`), then `run --bvh --reid --crossings
   --debug_dump` (B1 at N = 66, rank 32): its tracklets bit-equal to an
@@ -88,6 +88,18 @@ each with the launch counters set to 0 just before it and read just after:
   `run_offline` alone); `mesh_train` (the dp x tp PoseNet step at (2, 2)
   and (1, 1) against the unsharded step, steps/s).
 
+- the benchmark programs: `bench` (the CLI's `bench` mode, the package's
+  `bench.py`, on the slice's scene written as files in the Shelf dataset's
+  layout: `bench.measure` in-process and `bench --data_dir` in a child
+  process, the tracklets bit-equal to `slice`'s, the JSON line's quality
+  fields the slice's; a missing directory raises FileNotFoundError);
+  `stream_curve` (scripts/torch_bench_streaming.py's `update_batch` curve
+  over k in {1, 4, 8, 16, 32} on those files, every k bit-equal to
+  `run_offline`); `scaled` (scripts/torch_bench_scaled.py's `bench_config`
+  on its 10-camera rig, B1 at N 116, and its two 128-camera rigs, B3 at
+  C 4, N 336 and at C 5, N 276 with dead pad views; each rig's first
+  frames card against CPU).
+
 The kernel checks also launch B1 and B3 with their X output
 (`return_x=True`): X bit-equal to the plain version's, x_bin and the
 iterations those of the launch without it (`als_x`, and `x_max_abs_err`,
@@ -116,6 +128,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -153,7 +166,10 @@ REPROJ_GATE_PX = 0.25
 # (scripts/torch_parity_study.py, "ik_sensitivity"), a wrong solve or a
 # wrong observation moves a joint by decimetres
 POSE_TOL_M = 1e-2
-PARITY_FRAMES = 60
+PARITY_FRAMES = 30
+# the slice's profile window, and the frames whose host syncs `slice` counts
+SLICE_PROFILE_FRAMES = 10
+SYNC_FRAMES = 60
 
 # the wide-rig scene of scripts/bench_scaled.py (64 cameras x 10 people)
 WIDE_SCENE = dict(n_frames=60, n_people=10, n_views=64, seed=0, noise_px=1.0,
@@ -184,8 +200,8 @@ WIDE_REFERENCE = dict(
         "a99bea6d1e", "1c5310edfd", "44a899fd76", "22b8a005fb", "8b2bb9a886", "f631db586d",
         "68d9b6ce82", "f60b6f6f48", "ea92403c20", "b722c2a047", "4569ae0023", "9ede1e1cf5"],
 )
-WIDE_PARITY_FRAMES = 10
-WIDE_PROFILE_FRAMES = 10
+WIDE_PARITY_FRAMES = 3
+WIDE_PROFILE_FRAMES = 3
 
 # the default preset on the slice's scene: JAX package on the CPU, the
 # tracklets of its pipeline.run, in IK and in triangulation mode (the
@@ -199,9 +215,9 @@ DEFAULT_NO_IK_REFERENCE = dict(n_tracklets=13, top_lengths=[300, 299, 241, 174, 
                                median_reproj_px=1.03596178080396, n_degenerate_poses=0)
 # the JAX package's own bound for triangulation mode (its verify skill)
 NO_IK_REPROJ_BOUND_PX = 3.0
-DEFAULT_PARITY_FRAMES = 20
-DEFAULT_PROFILE_FRAMES = 10
-STREAM_FRAMES = 60
+DEFAULT_PARITY_FRAMES = 10
+DEFAULT_PROFILE_FRAMES = 5
+STREAM_FRAMES = 30
 STREAM_CHUNK = 8
 
 # scripts/identity_study.py's 10cam_x_10ppl_f200_appearance_extractorgrade_
@@ -219,7 +235,7 @@ APPEARANCE_REFERENCE = dict(
     n_tracklets=29, top_lengths=[200, 199, 199, 199, 194, 193, 167, 113, 77, 73],
     mean_reproj_px=2.0581043661681804, median_reproj_px=1.6518283784836114,
     n_degenerate_poses=0)
-APPEARANCE_PARITY_FRAMES = 20
+APPEARANCE_PARITY_FRAMES = 10
 # the `identity` phase's post-passes on the appearance scene's raw tracklets:
 # resolve_crossings, merge_tracklets, then the ghost filter at this length;
 # the `checkpoint` phase runs the same through pipeline.run in chunks
@@ -407,7 +423,7 @@ TRAIN_LOSS_GATE = 0.2
 # by `fk_generic.animate_bvh` within BVH_MEAN_ERR_M of its tracklet's
 # poses, the JAX package's own bound (tests/test_bvh.py:66-67: the file
 # holds one static skeleton, the mean of the tracklet's bone lengths)
-CLI_FRAMES = 60
+CLI_FRAMES = 40
 BVH_MEAN_ERR_M = 0.02
 # `detect` under the CLI (its image reading aside) on the detect scene's
 # first DETECT_CLI_FRAMES rendered frames, with --appearance --crossings
@@ -426,6 +442,31 @@ DETECT_CLI_FRAMES = 10
 DEBUG_CLUSTERED_FRAMES = [0, 3, 6, 9]
 DEBUG_SIM_TOL = 1e-6
 DEBUG_X_TOL = 0.1
+
+# Depths cut to make room for the benchmark programs' phases within the
+# run's time limit (each check unchanged, on fewer frames): parity 60 -> 30
+# frames, default_parity and appearance_parity 20 -> 10, wide_parity and
+# wide_profile 10 -> 3, profile 30 -> 10, default_profile 10 -> 5, stream
+# 60 -> 30, streams 30 -> 15 frames a stream, cli 60 -> 40, mesh_cameras
+# 60 -> 30, the slice's host-sync count 300 -> SYNC_FRAMES; scaled's card
+# against CPU check takes 2 frames, not 3 (the CPU's step at 128 views
+# takes seconds a frame).
+#
+# the benchmark programs.  bench: the package's `bench` mode (bench.py's
+# counterpart) on the slice's scene written as files in the Shelf dataset's
+# layout (`kps_opn/`, `calibs/`), all SCENE frames; its tracklets bit-equal
+# to the slice's.  scaled: scripts/torch_bench_scaled.py's bench_config on
+# three of its rigs, each cut to SCALED_FRAMES frames, and the first
+# SCALED_PARITY_FRAMES frames of each in IK mode card against CPU.
+# stream_curve: scripts/torch_bench_streaming.py's curve on the scene files,
+# cut to STREAM_CURVE_FRAMES frames per k
+SCALED_FRAMES = {"10cam_x_10ppl": 30, "128cam_x_10ppl_4clusters": 20,
+                 "128cam_x_10ppl_5clusters_nondiv": 20}
+SCALED_PARITY_FRAMES = 2
+# the 128-camera, 4-cluster rig's full-IK launches, device busy time and
+# idle share a frame: a device-only profile over its first frames
+SCALED_PROFILE = ("128cam_x_10ppl_4clusters", 3)
+STREAM_CURVE_FRAMES = 96
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -838,7 +879,9 @@ def wide_cluster_problems(torch, dev, n_views, clusters, seed):
     from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
 
     cfg = PipelineConfig.wide(n_views, assoc_clusters=clusters, max_frames=None)
-    scene = dict(WIDE_SCENE, n_views=n_views, seed=seed)
+    # frame 0 only: a sequence draws its frames in order, so its first frame
+    # is the same at any length
+    scene = dict(WIDE_SCENE, n_views=n_views, seed=seed, n_frames=1)
     seq = synthetic_sequence(cfg=cfg, **scene)
     b = filter_bad_poses(seq.batch, cfg)
     ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=dev)
@@ -940,7 +983,10 @@ def phase_kernels(torch, dev, seq, cfg, dseq, dcfg, aseq, acfg, app):
     gj = [timed(check_gj, torch, dev, T, 68, seed)
           for T, seed in ((8, 0), (16, 4), (64, 1), (12, 5))]
     als_batched = []
-    for name, views, clusters in (("wide64_frame0", 64, 2), ("rig128_4clusters", 128, 4)):
+    # the wide rig (C 2, N 336) and the 128-camera rigs of
+    # scripts/torch_bench_scaled.py (C 4, N 336; C 5, N 276 with dead pad views)
+    for name, views, clusters in (("wide64_frame0", 64, 2), ("rig128_4clusters", 128, 4),
+                                  ("rig128_5clusters", 128, 5)):
         t0 = time.perf_counter()
         W, mask, init, wcfg = wide_cluster_problems(torch, dev, views, clusters, seed=0)
         als_batched.append(check_als_batched(torch, name, W, mask, init,
@@ -966,7 +1012,9 @@ def phase_kernels(torch, dev, seq, cfg, dseq, dcfg, aseq, acfg, app):
         raise AssertionError("a kernel disagrees with its plain version")
     return dict(als=als[0], als_default=als[3], als_appearance=als[5], als_detect=als[7],
                 gj_solve=gj[0],
-                als_batched=als_batched[0], fused_normal_gj=fused[0], gj_solve_grid=gj_grid[0])
+                als_batched=als_batched[0], als_batched_c4=als_batched[1],
+                als_batched_c5=als_batched[2], fused_normal_gj=fused[0],
+                gj_solve_grid=gj_grid[0])
 
 
 @contextlib.contextmanager
@@ -1018,11 +1066,11 @@ def phase_slice(torch, dev, seq, cfg):
     m = ev.reprojection_metrics(res.tracklets, seq.batch, seq.cameras)
     finite = all(np.isfinite(t.poses_3d).all() for t in res.tracklets)
 
-    # host syncs of one steady-state pass over the sequence
+    # host syncs of a steady-state pass over the sequence's first SYNC_FRAMES
     b = filter_bad_poses(seq.batch, cfg)
     ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=dev)
-    kps = torch.as_tensor(b.kps, device=dev)
-    valid = torch.as_tensor(b.valid, device=dev)
+    kps = torch.as_tensor(b.kps[:SYNC_FRAMES], device=dev)
+    valid = torch.as_tensor(b.valid[:SYNC_FRAMES], device=dev)
     _, syncs = count_syncs(lambda: tracker.run_offline(ctx, kps, valid))
 
     quality = dict(n_tracklets=m.n_tracklets, top_lengths=m.lengths[:6],
@@ -1038,7 +1086,7 @@ def phase_slice(torch, dev, seq, cfg):
            "quality": quality, "reference": REFERENCE,
            "reproj_tol_px": REPROJ_TOL_PX, "matches_reference": matches,
            "reproj_gate_px": REPROJ_GATE_PX, "poses_finite": finite,
-           "launches": launches, "host_syncs_per_frame": syncs / res.n_frames}
+           "launches": launches, "host_syncs_per_frame": syncs / kps.shape[0]}
     emit(out)
     if not (finite and m.n_tracklets > 0 and launches["als"] > 0 and launches["gj_solve"] > 0):
         raise AssertionError("slice output or kernel launches missing")
@@ -1508,12 +1556,19 @@ def phase_wide_fused(torch, dev, seq, cfg, gj_res):
     return launches
 
 
-def write_scene_files(seq, root: Path, n_frames: int):
+def write_scene_files(seq, root: Path, n_frames: int, kps_dir: str = "kps", calib=None):
     """The first `n_frames` frames of a synthetic sequence as the CLI's
     inputs: `root/calibs/camNN.json` ({"K", "RT", "imgSize"}, the
-    reference's calibration format) and `root/kps/camNN/` with one OpenPose
-    BODY_25 JSON file a frame (each valid detection a person, its COCO
-    keypoints at their BODY_25 places, the rest zero)."""
+    reference's calibration format) and `root/<kps_dir>/camNN/` with one
+    OpenPose BODY_25 JSON file a frame (each valid detection a person, its
+    COCO keypoints at their BODY_25 places, the rest zero).  The valid
+    detections of a synthetic view fill its first slots, so the files load
+    back into the same batch, bit for bit.  `kps_dir="kps_opn"` gives the
+    Shelf dataset's layout, which the `bench` mode reads.  `calib`: the
+    (K, RT) to write in place of the bank's float32 ones
+    (`cameras.camera_ring_k_rt(V)[:2]` gives the float64 values a synthetic
+    ring's bank was made from, with which the files load back into the same
+    bank, bit for bit)."""
     import numpy as np
 
     from multiview_motion_capture_torch.pose_def import OPENPOSE25_TO_COCO
@@ -1521,12 +1576,14 @@ def write_scene_files(seq, root: Path, n_frames: int):
     cams = seq.cameras
     K, Rt, wh = (np.asarray(getattr(cams, f).cpu(), dtype=np.float64)
                  for f in ("K", "Rt", "img_wh"))
+    if calib is not None:
+        K, Rt = calib
     (root / "calibs").mkdir(parents=True)
     for v in range(len(K)):
         (root / "calibs" / f"cam{v:02d}.json").write_text(json.dumps(
             {"K": K[v].ravel().tolist(), "RT": Rt[v].ravel().tolist(),
              "imgSize": wh[v].tolist()}))
-        d = root / "kps" / f"cam{v:02d}"
+        d = root / kps_dir / f"cam{v:02d}"
         d.mkdir(parents=True)
         for f in range(n_frames):
             people = []
@@ -2233,8 +2290,9 @@ def phase_appearance_train(torch, dev):
 def cli_subprocess(args, timeout=900):
     """`python -m multiview_motion_capture_torch ARGS` in a child process
     from the root of the checkout (runpy runs the package's `__main__` as
-    `-m` does), then its kernels' launch counts: (exit code, stdout lines,
-    stderr, launches, wall seconds)."""
+    `-m` does), then its kernels' launch counts, printed also when the mode
+    exits non-zero: (exit code, stdout lines, stderr, launches, wall
+    seconds)."""
     code = ("import json, runpy, sys\n"
             "from multiview_motion_capture_torch.ops import cuda_lib\n"
             f"sys.argv = ['multiview_motion_capture_torch'] + {list(args)!r}\n"
@@ -2244,8 +2302,9 @@ def cli_subprocess(args, timeout=900):
             "except SystemExit as e:\n"
             "    if e.code:\n"
             "        raise\n"
-            "print('LAUNCHES ' + json.dumps({k.name: k.launches\n"
-            "                                 for k in cuda_lib.ALL_KERNELS}))\n")
+            "finally:\n"
+            "    print('LAUNCHES ' + json.dumps({k.name: k.launches\n"
+            "                                     for k in cuda_lib.ALL_KERNELS}), flush=True)\n")
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=timeout)
@@ -2566,10 +2625,12 @@ def phase_alt(torch, dev, seq, cfg):
 MESH_WIDE_CLUSTERS = 2            # cluster mesh of the wide rig: one cluster a device
 MESH_TRACKS = 4                   # track mesh: 16 slots, 4 a device
 MESH_CAMERAS = 4                  # camera mesh of the 32-camera rig: 8 cameras a device
+MESH_CAMERAS_FRAMES = 30
 MESH_FUSED_FRAMES = 10
 MESH_POSE_TOL_M = 1e-5
-# 30 frames a stream: four host loops under one GIL run ~4x slower than one
-STREAMS = dict(n_streams=4, seeds=[0, 1, 2, 3], n_frames=30)
+# 15 frames a stream (cut for the run's time): four host loops under one GIL
+# run ~4x slower than one
+STREAMS = dict(n_streams=4, seeds=[0, 1, 2, 3], n_frames=15)
 MESH_TRAIN = dict(batch=16, steps=2, timed_steps=5, lr=1e-3, seed=0)
 MESH_TRAIN_LOSS_RTOL = 1e-5
 MESH_TRAIN_GRAD_TOL = 1e-5        # of each leaf's largest magnitude
@@ -2694,7 +2755,8 @@ def phase_mesh_cameras(torch, dev):
     )
 
     cfg = PipelineConfig.wide(32, max_frames=None)
-    seq = synthetic_sequence(cfg=cfg, **dict(WIDE_SCENE, n_views=32))
+    seq = synthetic_sequence(cfg=cfg, **dict(WIDE_SCENE, n_views=32,
+                                             n_frames=MESH_CAMERAS_FRAMES))
     b = filter_bad_poses(seq.batch, cfg)
     kps, valid = torch.as_tensor(b.kps, device=dev), torch.as_tensor(b.valid, device=dev)
     pctx = tracker.TrackerContext.build(seq.cameras, cfg, device=dev)
@@ -2930,6 +2992,186 @@ def phase_mesh_train(torch, dev):
         raise AssertionError("the dp x tp step is off the unsharded step")
 
 
+def phase_bench(torch, dev, seq, slice_res, root: Path):
+    """The CLI's `bench` mode on the slice's scene: its SCENE frames written
+    under `root` in the Shelf dataset's layout, `bench.measure` on them
+    in-process (SHELF_BENCH, IK on; its gate is printed, not applied: the
+    bands are Shelf's; the calibration files hold the ring's float64
+    values, so they load into the scene's bank bit for bit), then `bench
+    --data_dir` under the CLI in a child process on the card.  Held: the
+    tracklets bit-equal to the `slice` phase's run of the same scene (the
+    file round trip is exact), the quality fields of both equal to the slice's, the child's JSON line
+    with bench.py's keys and the in-process gate (the child exits as
+    bench.py does when the gate fails), and a missing `--data_dir`
+    raising FileNotFoundError."""
+    from multiview_motion_capture_torch import __main__ as cli
+    from multiview_motion_capture_torch import bench
+
+    from multiview_motion_capture_torch.cameras import CameraBank, camera_ring_k_rt
+
+    n = SCENE["n_frames"]
+    write_scene_files(seq, root, n, kps_dir="kps_opn",
+                      calib=camera_ring_k_rt(SCENE["n_views"])[:2])
+    cams = CameraBank.from_json_dir(root / "calibs")
+    cams_equal = all(torch.equal(getattr(cams, f), getattr(seq.cameras, f))
+                     for f in ("K", "Rt", "P", "Kr_inv", "cam_loc", "img_wh"))
+    zero_launch_counts()
+    out = bench.measure(root, max_frames=n, device=dev)
+    launches = launch_counts()
+    res, m = out["result"], out["metrics"]
+    q_slice, _ = run_quality(slice_res.tracklets, seq, n_top=6)
+    q = dict(n_tracklets=m.n_tracklets, top_lengths=m.lengths[:6],
+             mean_reproj_px=m.mean_reproj_px, median_reproj_px=m.median_reproj_px,
+             n_degenerate_poses=m.n_degenerate_poses)
+    same = tracklets_equal(res.tracklets, slice_res.tracklets)
+
+    code, lines, err, child_launches, child_s = cli_subprocess(
+        ["bench", "--data_dir", str(root)])
+    line = json.loads(next(ln for ln in reversed(lines) if ln.startswith("{")))
+    ex = line["extra"]
+    line_matches = (
+        set(line) == {"metric", "value", "unit", "vs_baseline", "extra"}
+        and line["metric"] == "shelf_e2e_fps_5cam_ik" and ex["n_frames"] == n
+        and ex["n_tracklets"] == q_slice["n_tracklets"]
+        and ex["top_track_lengths"] == q_slice["top_lengths"][:5]
+        and ex["reproj_px_mean"] == round(q_slice["mean_reproj_px"], 2)
+        and ex["reproj_px_median"] == round(q_slice["median_reproj_px"], 2)
+        and ex["n_degenerate_poses"] == q_slice["n_degenerate_poses"]
+        and ex["quality_ok"] == out["quality_ok"]
+        and ex.get("quality_gate", out["gate"]) == out["gate"])
+    exit_as_bench = (code == 0 if out["quality_ok"]
+                     else code != 0 and "bench quality gate FAILED" in err)
+    missing = root.parent / (root.name + "_missing")
+    try:
+        cli.main(["bench", "--data_dir", str(missing)])
+        missing_raises = False
+    except FileNotFoundError as e:
+        missing_raises = str(missing) in str(e)
+    emit({"phase": "bench", "frames": res.n_frames, "fps": res.fps,
+          "slice_fps": slice_res.fps, "compile_s": out["compile_s"], "quality": q,
+          "slice_quality": q_slice, "cameras_bit_equal_scene": cams_equal,
+          "tracklets_bit_equal_slice": same,
+          "quality_equal_slice": q == q_slice, "gate": out["gate"],
+          "quality_ok": out["quality_ok"], "launches": launches, "cli_line": line,
+          "cli_exit_code": code, "cli_exit_as_bench_py": exit_as_bench,
+          "cli_line_matches": line_matches, "cli_s": child_s, "cli_launches": child_launches,
+          "missing_data_dir_raises": missing_raises})
+    if not (cams_equal and same and q == q_slice):
+        raise AssertionError("bench's cameras or tracklets differ from the slice's")
+    if not (line_matches and exit_as_bench and child_launches and child_launches["als"] > 0):
+        raise AssertionError("the CLI's bench line differs from bench.measure")
+    if not (launches["als"] > 0 and launches["gj_solve"] > 0 and missing_raises):
+        raise AssertionError("bench launched no kernel, or a missing directory passed")
+    return launches
+
+
+def phase_scaled(torch, dev):
+    """scripts/torch_bench_scaled.py's `bench_config` on the card for
+    SCALED_FRAMES' rigs (10 cameras: B1 at N 116; 128 cameras in 4 clusters:
+    B3 at C 4, N 336; in 5: B3 at C 5, N 276 with dead pad views), both
+    modes, then each rig's first SCALED_PARITY_FRAMES frames in IK mode on
+    the card and on the CPU: x_bin and decisions equal, poses within
+    POSE_TOL_M; the card's short run equal to the first frames of
+    `bench_config`'s (the step is causal); a device-only profile of
+    SCALED_PROFILE's first frames.  Returns the launches of each rig's
+    `bench_config` run by path name."""
+    import numpy as np
+
+    from multiview_motion_capture_torch import tracker
+
+    bs = script_module("torch_bench_scaled")
+    rigs = bs.configs(cam128=True)
+    by_path, rows = {}, {}
+    for name, n_frames in SCALED_FRAMES.items():
+        kw = dict(rigs[name], n_frames=n_frames)
+        outs = {}
+        t0 = time.perf_counter()
+        zero_launch_counts()
+        r = bs.bench_config(device=dev, outputs=outs, **kw)
+        launches = launch_counts()
+        run_s = time.perf_counter() - t0
+        cfg_kw = {k: v for k, v in kw.items() if k not in ("n_views", "n_people", "n_frames")}
+        cfg = bs.scaled_config(kw["n_views"], kw["n_people"], **cfg_kw)
+        seq = bs.scaled_scene(cfg, kw["n_people"], n_frames)
+        F = SCALED_PARITY_FRAMES
+        kps, valid = seq.batch.kps[:F], seq.batch.valid[:F]
+        t0 = time.perf_counter()
+        card = timed_run_offline(torch, tracker.TrackerContext.build(seq.cameras, cfg,
+                                                                     device=dev), kps, valid)
+        cpu = timed_run_offline(torch, tracker.TrackerContext.build(seq.cameras, cfg,
+                                                                    device="cpu"), kps, valid)
+        parity = compare_runs(torch, card, cpu)
+        parity["cpu_s"] = cpu[2]
+        parity["card_equals_bench_run"] = all(
+            np.array_equal(a, b[:F]) for a, b in zip(card[0], outs["full_ik"]))
+        parity["wall_s"] = time.perf_counter() - t0
+        path = "scaled_" + name.replace("_x_10ppl", "")
+        by_path[path] = launches
+        clusters = cfg.assoc_clusters
+        rows[name] = dict(
+            frames=n_frames, clusters=clusters, n_matrix=cfg.n_matrix,
+            n_cluster=cfg.max_tracks + -(-cfg.n_views // clusters) * cfg.max_people,
+            run_s=run_s, **{m: r[m] for m in ("assoc_tri", "full_ik")},
+            launches=launches, launches_per_frame={
+                k: v / (4 * n_frames) for k, v in launches.items()},
+            parity_frames=F, parity=parity)
+        emit({"phase": "scaled", "config": name, **rows[name]})
+        if name == SCALED_PROFILE[0]:
+            phase_profile(torch, dev, seq, cfg, SCALED_PROFILE[1], "scaled_profile", 12, False)
+        batched = clusters > 1
+        if not (launches["als_batched" if batched else "als"] > 0
+                and launches["als" if batched else "als_batched"] == 0
+                and launches["gj_solve"] > 0):
+            raise AssertionError(f"{name}: the ALS or LM kernels did not launch as expected")
+        if not all(r[m]["n_tracklets"] > 0 for m in ("assoc_tri", "full_ik")):
+            raise AssertionError(f"{name}: no tracklets")
+        if not (parity["decisions_equal"] and parity["x_bin_equal"]
+                and parity["max_pose_diff_m"] <= POSE_TOL_M
+                and parity["card_equals_bench_run"]):
+            raise AssertionError(f"{name}: card and CPU runs disagree")
+    emit({"phase": "scaled", "summary": {
+        n: {"fps_assoc_tri": v["assoc_tri"]["fps"], "fps_full_ik": v["full_ik"]["fps"],
+            "n_tracklets": v["full_ik"]["n_tracklets"], "n_long": v["full_ik"]["n_long"],
+            "mpjpe_m": v["assoc_tri"]["mpjpe_m"],
+            "b1_b3_b2_launches": [v["launches"][k] for k in ("als", "als_batched",
+                                                              "gj_solve")]}
+        for n, v in rows.items()}})
+    return by_path
+
+
+def phase_stream_curve(torch, dev, root: Path):
+    """scripts/torch_bench_streaming.py's curve on the `bench` phase's scene
+    files, cut to STREAM_CURVE_FRAMES frames: for each k, `update_batch`
+    in chunks of k after a warm chunk and the state reset in place; every
+    k's outputs (the short tail chunk included) bit-equal to `run_offline`
+    on those frames; frames/s and the p50 / p99 ms of a chunk per k."""
+    import numpy as np
+
+    from multiview_motion_capture_torch import tracker
+
+    st = script_module("torch_bench_streaming")
+    cfg, batch, cams = st.load(root, SCENE["n_frames"])
+    F = STREAM_CURVE_FRAMES
+    kps, valid = batch.kps[:F], batch.valid[:F]
+    trackers = {}
+    zero_launch_counts()
+    res = st.stream_curve(cams, cfg, kps, valid, device=dev, trackers=trackers)
+    launches = launch_counts()
+    ctx = tracker.TrackerContext.build(cams, cfg, device=dev)
+    ref = tracker.outputs_to_numpy(tracker.run_offline(ctx, kps, valid)[1])
+    equal = {k: trk.frame_idxs == list(range(F)) and all(
+        np.array_equal(np.stack([getattr(o, f) for o in trk.outputs]), getattr(ref, f))
+        for f in tracker.FrameOutput._fields) for k, trk in trackers.items()}
+    emit({"phase": "stream_curve", "frames": F, "curve": res,
+          "tail_chunks": {k: F % k for k in trackers},
+          "bit_equal_run_offline": equal, "launches": launches})
+    if not all(equal.values()):
+        raise AssertionError("a chunk size's stream differs from run_offline")
+    if launches["als"] == 0 or launches["gj_solve"] == 0:
+        raise AssertionError("the streaming curve launched no kernel")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2962,7 +3204,7 @@ def main() -> int:
                        aseq, acfg, app)
     slice_launches, slice_res = run_phase("slice", phase_slice, torch, "cuda", seq, cfg)
     run_phase("parity", phase_parity, torch, "cuda", seq, cfg)
-    run_phase("profile", phase_profile, torch, "cuda", seq, cfg)
+    run_phase("profile", phase_profile, torch, "cuda", seq, cfg, SLICE_PROFILE_FRAMES)
 
     default_launches = run_phase("default", phase_default, torch, "cuda", dseq, dcfg)
     run_phase("default_parity", phase_parity, torch, "cuda", dseq, dcfg,
@@ -3006,6 +3248,12 @@ def main() -> int:
                                    slice_res)
     streams_launches = run_phase("streams", phase_streams, torch, "cuda")
     run_phase("mesh_train", phase_mesh_train, torch, "cuda")
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        bench_launches = run_phase("bench", phase_bench, torch, "cuda", seq, slice_res,
+                                   Path(tmp))
+        curve_launches = run_phase("stream_curve", phase_stream_curve, torch, "cuda",
+                                   Path(tmp))
+    scaled_launches = run_phase("scaled", phase_scaled, torch, "cuda")
 
     paths = {"slice": slice_launches, "default": default_launches, "no_ik": no_ik_launches,
              "stream": stream_launches, "appearance": app_launches,
@@ -3014,7 +3262,8 @@ def main() -> int:
              "debug_clustered": debug_launches, "wide": wide_launches,
              "wide_fused": fused_launches, "mesh_wide": mesh_wide_launches,
              "mesh_wide_fused": mesh_fused_launches, "mesh_cameras": mesh_cameras_launches,
-             "mesh_spec": mesh_spec_launches, "streams": streams_launches}
+             "mesh_spec": mesh_spec_launches, "streams": streams_launches,
+             "bench": bench_launches, "stream_curve": curve_launches, **scaled_launches}
 
     def row(kernel, replaces, r, library_ms):
         by_path = {p: c[kernel.name] for p, c in paths.items() if c[kernel.name]}
@@ -3045,11 +3294,20 @@ def main() -> int:
         als_row[key] = {k: checks[case][k] for k in (
             "case", "n", "rank", "iters_kernel", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "cluster", "ms_per_iter", "x_max_abs_err", "ms_with_x")}
+    # B3 at the 128-camera rigs' shapes (C 4, N 336; C 5, N 276), the same
+    # fields and the C sequential B1 launches beside them
+    b3_row = row(cuda_lib.ALS_BATCHED, tpu + "als_pallas.py:282", checks["als_batched"], None)
+    for key, case in (("at_rig128_4clusters", "als_batched_c4"),
+                      ("at_rig128_5clusters", "als_batched_c5")):
+        b3_row[key] = {k: checks[case][k] for k in (
+            "case", "C", "n", "rank", "iters_kernel", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "yardstick_ms", "cluster", "ms_per_iter",
+            "x_max_abs_err", "ms_with_x")}
     table = {"kernels": [
         als_row,
         row(cuda_lib.GJ_SOLVE, tpu + "solve_pallas.py:55", checks["gj_solve"],
             checks["gj_solve"]["library_ms"]),
-        row(cuda_lib.ALS_BATCHED, tpu + "als_pallas.py:282", checks["als_batched"], None),
+        b3_row,
         row(cuda_lib.FUSED_NORMAL_GJ, tpu + "solve_pallas.py:111", checks["fused_normal_gj"],
             None),
         row(cuda_lib.GJ_SOLVE_GRID, tpu + "solve_pallas.py:29", checks["gj_solve_grid"],

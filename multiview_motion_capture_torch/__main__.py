@@ -1,13 +1,14 @@
-"""CLI: prepare | run | detect | viz, the JAX package's command line
+"""CLI: prepare | run | detect | viz | bench, the JAX package's command line
 (`multiview_motion_capture_tpu/__main__.py`, the reference's argparse
 surface, ref:src/motion_capture.py:1221-1256) over the port.
 
-`run` and `detect` run on the card unless `--cpu` is given (then every
-device step takes the plain PyTorch versions of the kernels on the CPU);
-without a GPU and without `--cpu` they raise.  `run --mesh SPEC` shards
-the tracker's stages over the visible cards (over the CPU, repeated, with
-`--cpu`).  Not ported: the `bench` mode (the JAX package's benchmark,
-which reads the Shelf dataset).
+`run`, `detect` and `bench` run on the card unless `--cpu` is given (then
+every device step takes the plain PyTorch versions of the kernels on the
+CPU); without a GPU and without `--cpu` they raise.  `run --mesh SPEC`
+shards the tracker's stages over the visible cards (over the CPU,
+repeated, with `--cpu`).  `bench` is the package's `bench.main`: Shelf
+end to end, one JSON line (`--data_dir`: the Shelf directory, with
+`kps_opn/` and `calibs/`).
 
 Examples:
   python -m multiview_motion_capture_torch prepare \
@@ -18,6 +19,7 @@ Examples:
   python -m multiview_motion_capture_torch viz \
       --tracklets out/tracklets.pkl --calib_dir data/shelf/calibs \
       --out out/result.mp4
+  python -m multiview_motion_capture_torch bench --data_dir data/shelf
 """
 from __future__ import annotations
 
@@ -207,8 +209,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="multiview_motion_capture_torch",
         description="Multi-view motion capture on an NVIDIA GPU (PyTorch/CUDA); "
-                    "--cpu runs on the CPU.",
-        epilog="Not ported from the JAX package's CLI: the bench mode.")
+                    "--cpu runs on the CPU.")
     sub = parser.add_subparsers(dest="mode", required=True)
 
     p_prep = sub.add_parser("prepare", help="OpenPose JSON -> packed npz")
@@ -306,6 +307,17 @@ def main(argv=None) -> int:
                             "(mp4; falls back to gif without ffmpeg) — the "
                             "reference's FuncAnimation window, exported")
     _add_common(p_viz)
+
+    from multiview_motion_capture_torch import bench
+
+    p_bench = sub.add_parser("bench", help="the Shelf end-to-end benchmark: bench.py's "
+                                               "JSON line")
+    p_bench.add_argument("--data_dir", default=str(bench.SHELF_DIR),
+                         help="the Shelf sequence: kps_opn/ (OpenPose JSON) and "
+                              "calibs/ (default: %(default)s)")
+    p_bench.add_argument("--cpu", action="store_true",
+                         help="run on the CPU (the kernels' plain PyTorch versions); "
+                              "without it the run needs an NVIDIA GPU")
 
     args = parser.parse_args(argv)
     device = "cpu" if args.cpu else "cuda"
@@ -420,6 +432,10 @@ def main(argv=None) -> int:
 
             out3d = animate_tracklets_3d(tlets, Path(args.animate_3d))
             print(f"wrote {out3d}")
+        return 0
+
+    if args.mode == "bench":
+        bench.main(Path(args.data_dir), device=device)
         return 0
 
     return 1

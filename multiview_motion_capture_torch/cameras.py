@@ -147,11 +147,13 @@ def look_at_camera(eye: np.ndarray, target: np.ndarray,
     return R, t
 
 
-def synthetic_camera_ring(n_views: int, radius: float = 4.0, height: float = 1.6,
-                          img_wh=(1032, 776), focal: float = 1100.0,
-                          center=(0.0, 0.0, 1.0)) -> CameraBank:
-    """A ring of cameras around the capture volume, for synthetic/scaled
-    configs (on the CPU; `CameraBank.to` moves it)."""
+def camera_ring_k_rt(n_views: int, radius: float = 4.0, height: float = 1.6,
+                     img_wh=(1032, 776), focal: float = 1100.0,
+                     center=(0.0, 0.0, 1.0)) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The float64 K (V, 3, 3), [R | t] (V, 3, 4) and image sizes (V, 2) of
+    `synthetic_camera_ring`'s cameras.  The bank keeps K and [R | t] in
+    float32 but forms P from these values, so calibration files written from
+    them load back into the same bank, bit for bit."""
     Ks, Rts, whs = [], [], []
     w, h = img_wh
     center = np.asarray(center, dtype=np.float64)
@@ -163,4 +165,13 @@ def synthetic_camera_ring(n_views: int, radius: float = 4.0, height: float = 1.6
         Ks.append(K)
         Rts.append(np.concatenate([R, t[:, None]], axis=1))
         whs.append(np.array([w, h], dtype=np.float64))
-    return CameraBank.from_k_rt(np.stack(Ks), np.stack(Rts), np.stack(whs))
+    return np.stack(Ks), np.stack(Rts), np.stack(whs)
+
+
+def synthetic_camera_ring(n_views: int, radius: float = 4.0, height: float = 1.6,
+                          img_wh=(1032, 776), focal: float = 1100.0,
+                          center=(0.0, 0.0, 1.0)) -> CameraBank:
+    """A ring of cameras around the capture volume, for synthetic/scaled
+    configs (on the CPU; `CameraBank.to` moves it)."""
+    return CameraBank.from_k_rt(*camera_ring_k_rt(n_views, radius, height, img_wh, focal,
+                                                  center))

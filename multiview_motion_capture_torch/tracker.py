@@ -1246,13 +1246,16 @@ def _frames_to_device(ctx: TrackerContext, kps, valid, app):
     return kps, valid, app
 
 
-def run_offline(ctx: TrackerContext, kps, valid, state: Optional[TrackerState] = None,
-                app=None) -> Tuple[TrackerState, FrameOutput]:
+def run_offline(ctx: TrackerContext, kps, valid, frame_idxs=None, app=None, *,
+                state: Optional[TrackerState] = None) -> Tuple[TrackerState, FrameOutput]:
     """Whole-sequence tracking: one step per frame, from `state` (zeros by
     default), on the context's device.  kps: (F, V, P, K, 3); valid:
     (F, V, P); app: (F, V, P, D) detection embeddings, needed when
-    `cfg.appearance_dim > 0`; numpy or tensors.  Returns the last state and
-    the stacked per-frame outputs (F, ...) on the device."""
+    `cfg.appearance_dim > 0`; numpy or tensors.  `frame_idxs` is accepted
+    and ignored, as in the JAX package's signature (its fourth positional
+    parameter), so a call written for it runs here unchanged; `state` is
+    keyword-only.  Returns the last state and the stacked per-frame
+    outputs (F, ...) on the device."""
     kps, valid, app = _frames_to_device(ctx, kps, valid, app)
     if state is None:
         state = TrackerState.zeros(ctx.cfg, device=ctx.device)

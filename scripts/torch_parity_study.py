@@ -2,7 +2,10 @@
 """Where the PyTorch port's decisions part from the JAX package's, on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py [--frames 300] [--draws 12]
-    JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study wide [--frames 60]
+    JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study wide [--frames 60] \
+        [--solver gj_fused]
+    JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study rig128 [--frames 8]
+    JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study bench [--frames 12] [--draws 4]
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study cold [--draws 2]
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study default [--frames 300]
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study appearance [--frames 200]
@@ -56,6 +59,43 @@ two interleaved camera clusters) and prints:
   iterations, binarized entries that differ, and the smallest |X - 0.5|
   over the valid entries (the binarization margin); the same for the
   "wide_sequence" run's first diverging frame, from the JAX run's state.
+
+`--solver gj_fused` runs the same with the fused LM solve (the wide
+preset's other LM route, B4 in the port); every line then carries
+`"solver"`.
+
+`--study rig128` runs scripts/torch_bench_scaled.py's
+128cam_x_10ppl_4clusters rig (128 views in 4 interleaved clusters, 10
+people, seed 0, noise 1 px, drop 0.05, `ik_max_views=16`) over `--frames`
+frames as its bench_config tracks it (one `run_offline` in IK mode, no
+bad-pose filter) and prints "rig128_reference" (the JAX package's
+tracklets, reprojection and per-frame ALS iterations) and
+"rig128_sequence" (the port's on the CPU, the first frame whose decisions
+differ, both ALS iteration counts there and each cluster's ALS problem at
+that frame from the JAX run's state, as "wide_stepwise" prints them).
+
+`--study bench` runs tests/test_torch_bench.py's scene
+(synthetic_sequence(`--frames` frames, 3 people, 5 views), written in the
+Shelf dataset's layout and read back, SHELF_BENCH with the ALS capped at
+1,000) at seeds 0-3 in both packages and in the port with every LM solve in
+float64 (the Cholesky route on float64 inputs, rounded to f32 for the
+state: the witness).  One "bench" line a seed: the first frame where each
+decision differs, the largest ALS iteration count of each package, the
+largest pose difference before the decisions part, and `pipeline.run`'s
+tracklets and reprojection for the three runs.  Where the decisions part,
+that frame's ALS problem from the JAX run's state (iterations, binarized
+entries that differ, margins) and, at frame 0, each solver's grouping and
+whether it is the ground truth's.  Where a slot's pose parts by more than
+1 mm first (`first_pose_gap`): the difference after one step of each
+package from the JAX run's state there; the warm LM solve of that step on
+the port's inputs by the port (f32), the JAX package (interpret mode) and
+the witness, each with its cost and its joints' distance from the
+witness's, the cost at the start and after 200 float64 iterations, the
+normal matrix's extreme eigenvalues and the parameters of its softest
+direction, and how far each solution moves for `--draws` random +-1e-7 rad
+steps of the start's angles; then that slot's trajectory in the three
+runs (their pairwise distances and each one's error against the ground
+truth, frame by frame).
 
 `--study cold` runs the 10-view, 3-cluster scene of
 tests/test_torch_clusters.py (synthetic_sequence(6 frames, 3 people, 10
@@ -816,12 +856,12 @@ def train_study() -> None:
     emit({"study": "appearance_train_init_spread", "init_seeds": [1, 2, 3, 4], **spread})
 
 
-def wide_study(n_frames: int) -> None:
+def wide_study(n_frames: int, solver: str = "gj") -> None:
     from multiview_motion_capture_torch.config import PipelineConfig as TConfig
     from multiview_motion_capture_tpu.config import PipelineConfig as JConfig
 
-    jcfg = JConfig.wide(64, max_frames=None)
-    tcfg = TConfig.wide(64, max_frames=None)
+    jcfg = JConfig.wide(64, max_frames=None, ik_solver=solver)
+    tcfg = TConfig.wide(64, max_frames=None, ik_solver=solver)
     kw = dict(n_frames=n_frames, n_people=10, n_views=64, seed=0, noise_px=1.0, drop_prob=0.05)
     js, ts = j_synth(cfg=jcfg, **kw), t_synth(cfg=tcfg, **kw)
     assert np.array_equal(js.batch.kps, ts.batch.kps)
@@ -833,7 +873,8 @@ def wide_study(n_frames: int) -> None:
     _, jo = j_tracker.run_offline(jctx, jnp.asarray(jb.kps), jnp.asarray(jb.valid))
     jo = jax.device_get(jo)
     j_dig = t_eval.decision_digests(jo)
-    emit({"study": "wide_reference", "frames": n_frames, **_quality(jr.tracklets, js, j_eval),
+    emit({"study": "wide_reference", "solver": solver, "frames": n_frames,
+          **_quality(jr.tracklets, js, j_eval),
           "als_iters": np.asarray(jo.als_iters).tolist(), "decision_digests": j_dig})
 
     _, to = t_tracker.run_offline(tctx, tb.kps, tb.valid)
@@ -841,7 +882,8 @@ def wide_study(n_frames: int) -> None:
     t_dig = t_eval.decision_digests(to)
     first = next((f for f in range(n_frames) if j_dig[f] != t_dig[f]), None)
     tl = t_pipeline.filter_ghost_tracklets(t_tracker.assemble_tracklets(to), tcfg.min_track_length)
-    emit({"study": "wide_sequence", "frames": n_frames, **_quality(tl, ts, t_eval),
+    emit({"study": "wide_sequence", "solver": solver, "frames": n_frames,
+          **_quality(tl, ts, t_eval),
           "first_diverging_frame": first,
           "als_iters_there": (None if first is None else
                               {"jax": int(jo.als_iters[first]), "port": int(to.als_iters[first])}),
@@ -869,9 +911,55 @@ def wide_study(n_frames: int) -> None:
                 margins = {"frame": f, "clusters": _cluster_margins(
                     jctx, tctx, jstate, jb.kps[f], jb.valid[f], jcfg)}
         jstate = new_jstate
-    emit({"study": "wide_stepwise", "frames": n_frames, "frames_with_differing_decisions": differ,
+    emit({"study": "wide_stepwise", "solver": solver, "frames": n_frames,
+          "frames_with_differing_decisions": differ,
           "first_differing_frame_clusters": margins,
           "sequence_first_diverging_frame_clusters": seq_margins})
+
+
+def rig128_study(n_frames: int) -> None:
+    """scripts/torch_bench_scaled.py's 128cam_x_10ppl_4clusters rig in both
+    packages on the CPU, as its bench_config tracks it (no bad-pose filter,
+    one run_offline in IK mode): tracklets, reprojection, the first frame
+    whose decisions differ, both runs' ALS iterations there, and each
+    cluster's ALS problem at that frame from the JAX run's state."""
+    from multiview_motion_capture_tpu.config import PipelineConfig as JConfig
+
+    bs = chip_smoke.script_module("torch_bench_scaled")
+    kw = dict(bs.configs(cam128=True)["128cam_x_10ppl_4clusters"], n_frames=n_frames)
+    tcfg = bs.scaled_config(kw["n_views"], kw["n_people"], clusters=kw["clusters"],
+                            ik_max_views=kw["ik_max_views"])
+    # the JAX side on its XLA ALS, as on any non-TPU backend
+    jcfg = JConfig(**{f.name: getattr(tcfg, f.name) for f in dataclasses.fields(JConfig)})
+    ts = bs.scaled_scene(tcfg, kw["n_people"], n_frames)
+    js = j_synth(n_frames=n_frames, n_people=kw["n_people"], n_views=kw["n_views"], cfg=jcfg,
+                 seed=0, noise_px=1.0, drop_prob=0.05)
+    assert np.array_equal(js.batch.kps, ts.batch.kps)
+    jctx = j_tracker.TrackerContext.build(js.cameras, jcfg)
+    tctx = t_tracker.TrackerContext.build(ts.cameras, tcfg, device="cpu")
+    kps, valid = ts.batch.kps, ts.batch.valid
+    _, jo = j_tracker.run_offline(jctx, jnp.asarray(kps), jnp.asarray(valid))
+    jo = jax.device_get(jo)
+    _, to = t_tracker.run_offline(tctx, kps, valid)
+    to = t_tracker.outputs_to_numpy(to)
+    j_dig, t_dig = t_eval.decision_digests(jo), t_eval.decision_digests(to)
+    first = next((f for f in range(n_frames) if j_dig[f] != t_dig[f]), None)
+    emit({"study": "rig128_reference", "frames": n_frames,
+          **_quality(j_tracker.assemble_tracklets(jo), js, j_eval),
+          "als_iters": np.asarray(jo.als_iters).tolist()})
+    margins = None
+    if first is not None:
+        jstate = j_tracker.TrackerState.zeros(jcfg)
+        if first > 0:
+            jstate, _ = j_tracker.run_offline(jctx, jnp.asarray(kps[:first]),
+                                              jnp.asarray(valid[:first]))
+        margins = _cluster_margins(jctx, tctx, jstate, kps[first], valid[first], jcfg)
+    emit({"study": "rig128_sequence", "frames": n_frames,
+          **_quality(t_tracker.assemble_tracklets(to), ts, t_eval),
+          "first_diverging_frame": first,
+          "als_iters_there": (None if first is None else
+                              {"jax": int(jo.als_iters[first]), "port": int(to.als_iters[first])}),
+          "first_diverging_frame_clusters": margins, "als_iters": to.als_iters.tolist()})
 
 
 def cold_sensitivity_study(seeds, draws: int, n_frames: int = 6, delta: float = 1e-7) -> None:
@@ -957,6 +1045,262 @@ def cold_sensitivity_study(seeds, draws: int, n_frames: int = 6, delta: float = 
               "cold_solves": solves})
 
 
+def _lm_f64(solve):
+    """`solve_two_stage` with every input in float64 and the Cholesky route
+    (the LM with no f32 rounding), its result rounded to f32 for the
+    tracker's state: the witness of the bench study."""
+    from multiview_motion_capture_torch.ops import ik as t_ik
+
+    def solve64(init, skel, obs, w, P, n_iters, **lm_kw):
+        d = torch.float64
+        p, j = solve(t_ik.IkParams(*(a.to(d) for a in init)), skel.to(d), obs.to(d), w.to(d),
+                     P.to(d), n_iters, **dict(lm_kw, solver="chol"))
+        return t_ik.IkParams(*(a.float() for a in p)), j.float()
+
+    return solve64
+
+
+def _param_name(i: int) -> str:
+    from multiview_motion_capture_torch.ops.ik import N_JOINTS
+
+    if i < 3:
+        return f"root[{i}]"
+    if i < 3 + 3 * N_JOINTS:
+        return f"euler[{(i - 3) // 3}][{(i - 3) % 3}]"
+    return f"side_lens[{i - 3 - 3 * N_JOINTS}]"
+
+
+def _lm_conditioning(x, skel, obs, w, P, eps, slot) -> dict:
+    """The damping-free normal matrix JᵀJ of one slot at x, in float64: its
+    extreme eigenvalues and the parameters that dominate its softest
+    direction."""
+    from multiview_motion_capture_torch.ops import ik as t_ik
+
+    d = torch.float64
+    _, J = t_ik._residual_and_jacobian(x.to(d), skel.to(d), t_ik.add_mid_spine(obs.to(d)),
+                                       w.to(d), P.to(d), eps)
+    ev, vec = torch.linalg.eigh(J[slot].T @ J[slot])
+    soft = vec[:, 0].abs()
+    top = torch.argsort(soft, descending=True)[:3].tolist()
+    return {"eig_min": float(ev[0]), "eig_max": float(ev[-1]),
+            "softest_direction": {_param_name(i): round(float(soft[i]), 4) for i in top}}
+
+
+def _lm_cost(params, skel, obs, w, P, eps) -> np.ndarray:
+    """Each slot's LM objective (sum of squared weighted residuals) at
+    params, in float64."""
+    from multiview_motion_capture_torch.ops import ik as t_ik
+
+    d = torch.float64
+    r = t_ik._residual(params.pack().to(d), skel.to(d), t_ik.add_mid_spine(obs.to(d)),
+                       w.to(d), P.to(d), eps)
+    return (r * r).sum(1).numpy()
+
+
+def _slot_mpjpe(pose3d, updated, gt_3d, slot) -> list:
+    """One slot's error (m) against the nearest ground-truth person, on the
+    joints common to BASIC_18 and COCO, on each frame it was updated."""
+    from multiview_motion_capture_torch.pose_def import KpsFormat, common_kps_index
+
+    sk, gt = common_kps_index(KpsFormat.BASIC_18, KpsFormat.COCO)
+    out = []
+    for f in range(len(pose3d)):
+        if not updated[f, slot]:
+            out.append(None)
+            continue
+        X, G = pose3d[f, slot][sk], gt_3d[f][:, gt]
+        out.append(round(float(np.linalg.norm(G - X[None], axis=-1).mean(-1).min()), 5))
+    return out
+
+
+def _first_frame_groupings(jctx, tctx, jb, tb, cfg, gt_slot_person) -> dict:
+    """The first frame's ALS problem (no live track) solved by the JAX
+    `match_als` on JAX's W and by the port's plain version on the port's W,
+    in f32 and f64: iterations, the grouping of the valid detections, and
+    whether it is the ground truth's."""
+    kw = _als_kw(cfg)
+    Wj, evj = j_tracker._spatial_similarity(jctx, jnp.asarray(jb.kps[0]),
+                                            jnp.asarray(jb.valid[0]))
+    Wt, _ = t_tracker._spatial_similarity(tctx, torch.as_tensor(tb.kps[0]),
+                                          torch.as_tensor(tb.valid[0]))
+    ev = np.asarray(evj)
+    mask, init = np.asarray(jctx.diag_mask), np.asarray(jctx.init_A)
+    gt = np.concatenate([np.full(cfg.max_tracks, -1), gt_slot_person.reshape(-1)])
+    gt_same = same_group(np.where(ev, gt, -1))
+    rj = j_assoc.match_als(Wj, jnp.asarray(mask), jnp.asarray(init), **kw)
+    runs = {"jax_f32": (np.asarray(rj.x_bin), int(rj.n_iters))}
+    for name, dt in (("port_f32", torch.float32), ("port_f64", torch.float64)):
+        r = t_assoc.match_als(Wt.to(dt), torch.as_tensor(mask), torch.as_tensor(init), **kw)
+        runs[name] = (r.x_bin.numpy(), int(r.n_iters))
+    out = {}
+    for name, (xb, it) in runs.items():
+        g = grouping(xb, ev)
+        out[name] = {"iters": it, "grouping": g,
+                     "is_ground_truth": bool(np.array_equal(same_group(g), gt_same))}
+    return out
+
+
+def bench_study(seeds, n_frames: int, draws: int, gap_m: float = 1e-3,
+                delta: float = 1e-7) -> None:
+    """tests/test_torch_bench.py's scene (synthetic_sequence(n_frames, 3
+    people, 5 views), written in Shelf's layout and read back, SHELF_BENCH
+    with the ALS capped at SETTLED_CAP) at each seed, in both packages and in
+    the port with a float64 LM (the witness)."""
+    import functools
+    import tempfile
+
+    from multiview_motion_capture_torch.cameras import CameraBank as TCams
+    from multiview_motion_capture_torch.data.ingest import load_openpose_dir as t_load
+    from multiview_motion_capture_torch.ops import ik as t_ik
+    from multiview_motion_capture_tpu.cameras import CameraBank as JCams
+    from multiview_motion_capture_tpu.data.ingest import load_openpose_dir as j_load
+    from multiview_motion_capture_tpu.ops import ik as j_ik
+
+    cap = 1000      # tests/test_torch_bench.py's SETTLED_CAP
+    for seed in seeds:
+        tcfg = dataclasses.replace(T_SHELF_BENCH, als_max_iter=cap, max_frames=n_frames)
+        jcfg = dataclasses.replace(J_SHELF_BENCH, als_max_iter=cap, max_frames=n_frames)
+        seq = t_synth(cfg=dataclasses.replace(T_SHELF_BENCH, max_frames=None),
+                      n_frames=n_frames, n_people=3, n_views=5, seed=seed)
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            chip_smoke.write_scene_files(seq, root, n_frames, kps_dir="kps_opn")
+            t_raw, j_raw = t_load(root / "kps_opn", tcfg), j_load(root / "kps_opn", jcfg)
+            tcams = TCams.from_json_dir(root / "calibs")
+            jcams = JCams.from_json_dir(root / "calibs")
+        tb, jb = t_filter(t_raw, tcfg), j_filter(j_raw, jcfg)
+        assert np.array_equal(tb.kps, np.asarray(jb.kps))
+        tctx = t_tracker.TrackerContext.build(tcams, tcfg, device="cpu")
+        jctx = j_tracker.TrackerContext.build(jcams, jcfg)
+        _, jo = j_tracker.run_offline(jctx, jnp.asarray(jb.kps), jnp.asarray(jb.valid))
+        jo = jax.device_get(jo)
+        _, to = t_tracker.run_offline(tctx, tb.kps, tb.valid)
+        to = t_tracker.outputs_to_numpy(to)
+        solve = t_ik.solve_two_stage
+        t_ik.solve_two_stage = _lm_f64(solve)
+        try:
+            _, wo = t_tracker.run_offline(tctx, tb.kps, tb.valid)
+            w_res = t_pipeline.run(t_raw, tcams, tcfg, device="cpu")
+        finally:
+            t_ik.solve_two_stage = solve
+        wo = t_tracker.outputs_to_numpy(wo)
+
+        first = {}
+        for f in DECISIONS:
+            bad = np.nonzero((np.asarray(getattr(jo, f)) != getattr(to, f))
+                             .reshape(n_frames, -1).any(1))[0]
+            first[f] = int(bad[0]) if len(bad) else None
+        stop = min([v for v in first.values() if v is not None], default=n_frames)
+        jpose = np.asarray(jo.pose3d)
+        both = np.asarray(jo.updated) & to.updated
+        diff = np.abs(jpose - to.pose3d).max(axis=(2, 3))
+        gaps = [(f, s) for f in range(stop) for s in np.nonzero(both[f])[0]
+                if diff[f, s] > gap_m]
+        quality = {}
+        for name, res, ev, batch, cams in (
+                ("port", t_pipeline.run(t_raw, tcams, tcfg, device="cpu"), t_eval, t_raw, tcams),
+                ("jax", j_pipeline.run(j_raw, jcams, jcfg, use_ik=True), j_eval, j_raw, jcams),
+                ("port_f64_lm", w_res, t_eval, t_raw, tcams)):
+            m = ev.reprojection_metrics(res.tracklets, batch, cams)
+            quality[name] = {"n_tracklets": m.n_tracklets, "lengths": m.lengths,
+                             "mean_reproj_px": m.mean_reproj_px,
+                             "median_reproj_px": m.median_reproj_px}
+        row = {"study": "bench", "seed": seed, "frames": n_frames,
+               "first_diverging_frame": first,
+               "als_iters_max": {"jax": int(np.asarray(jo.als_iters).max()),
+                                 "port": int(to.als_iters.max())},
+               "max_pose_diff_m_before_divergence": float(diff[:stop][both[:stop]].max())
+               if both[:stop].any() else None,
+               "quality": quality, "first_pose_gap": None}
+        if stop < n_frames:
+            jstate = j_tracker.TrackerState.zeros(jcfg)
+            if stop > 0:
+                jstate, _ = j_tracker.run_offline(jctx, jnp.asarray(jb.kps[:stop]),
+                                                  jnp.asarray(jb.valid[:stop]))
+            row["diverging_frame_als"] = _single_margins(jctx, tctx, jstate, jb.kps[stop],
+                                                         jb.valid[stop], jcfg)
+            if stop == 0:
+                row["diverging_frame_groupings"] = _first_frame_groupings(
+                    jctx, tctx, jb, tb, jcfg, seq.gt_slot_person[0])
+        if gaps:
+            f, s = gaps[0]
+            s = int(s)
+            # one step of each package from the JAX run's state before f,
+            # keeping the port's warm LM inputs
+            jstate = j_tracker.TrackerState.zeros(jcfg)
+            if f > 0:
+                jstate, _ = j_tracker.run_offline(jctx, jnp.asarray(jb.kps[:f]),
+                                                  jnp.asarray(jb.valid[:f]))
+            warm = []
+
+            def recording(init, skel, obs, w, P, n_iters, **lm_kw):
+                if n_iters == tcfg.ik_warm_iters:
+                    warm.append((init, skel, obs, w, P, lm_kw))
+                return solve(init, skel, obs, w, P, n_iters, **lm_kw)
+
+            t_ik.solve_two_stage = recording
+            try:
+                _, t1 = t_tracker.make_step(tctx)(_carry(jstate), torch.as_tensor(tb.kps[f]),
+                                                  torch.as_tensor(tb.valid[f]))
+            finally:
+                t_ik.solve_two_stage = solve
+            _, j1 = jax.jit(j_tracker.make_step(jctx))(
+                jstate, (jnp.asarray(jb.kps[f]), jnp.asarray(jb.valid[f])))
+            one_step = float(np.abs(np.asarray(j1.pose3d)[s] - t1.pose3d[s].numpy()).max())
+            assert len(warm) == 1
+            init, skel, obs, w, P, lm_kw = warm[0]
+            n_it, eps = tcfg.ik_warm_iters, lm_kw.get("eps", 1e-5)
+            j_solve = jax.jit(functools.partial(j_ik.solve_two_stage, n_iters=n_it,
+                                                interpret=True, **lm_kw))
+
+            def solved(euler):
+                start = init._replace(euler=euler)
+                p32, t32 = solve(start, skel, obs, w, P, n_it, **lm_kw)
+                p64, t64 = _lm_f64(solve)(start, skel, obs, w, P, n_it, **lm_kw)
+                j_init = j_ik.IkParams(*(jnp.asarray(a.numpy()) for a in start))
+                pj, tj = j_solve(j_init, jctx.skel, jnp.asarray(obs.numpy()),
+                                 jnp.asarray(w.numpy()), jnp.asarray(P.numpy()))
+                pj = t_ik.IkParams(*(torch.as_tensor(np.asarray(a)) for a in pj))
+                return ({"port": (p32, t32.numpy()), "jax": (pj, np.asarray(tj)),
+                         "port_f64_lm": (p64, t64.numpy())})
+
+            sols = solved(init.euler)
+            conv, _ = _lm_f64(solve)(init, skel, obs, w, P, 200, **lm_kw)
+            wit = sols["port_f64_lm"][1][s]
+            shifts = []
+            for d in range(draws):
+                rng = np.random.RandomState(d)
+                step = torch.as_tensor(delta * rng.choice([-1.0, 1.0], tuple(init.euler.shape)),
+                                       dtype=init.euler.dtype)
+                moved = solved(init.euler + step)
+                shifts.append({k: float(np.abs(moved[k][1][s] - sols[k][1][s]).max())
+                               for k in sols})
+            row["first_pose_gap"] = {
+                "frame": f, "slot": s, "pose_diff_m": float(diff[f, s]),
+                "views": int((w[s] > 0).sum()),
+                "one_step_from_jax_state_m": one_step,
+                "same_inputs": {k: {"cost": float(_lm_cost(p, skel, obs, w, P, eps)[s]),
+                                    "joints_vs_f64_lm_m": float(np.abs(j[s] - wit).max())}
+                                for k, (p, j) in sols.items()},
+                "cost_at_start": float(_lm_cost(init, skel, obs, w, P, eps)[s]),
+                "cost_converged_f64_200_iters": float(_lm_cost(conv, skel, obs, w, P, eps)[s]),
+                "normal_matrix_at_start": _lm_conditioning(init.pack(), skel, obs, w, P, eps, s),
+                "euler_steps": {"delta_rad": delta, "joint_shift_m": shifts},
+            }
+            row["slot_trajectory"] = {
+                "slot": s,
+                "port_vs_jax_m": [round(float(x), 5) for x in diff[:, s]],
+                "port_vs_f64_lm_m": [round(float(x), 5) for x in
+                                     np.abs(wo.pose3d - to.pose3d).max(axis=(2, 3))[:, s]],
+                "jax_vs_f64_lm_m": [round(float(x), 5) for x in
+                                    np.abs(wo.pose3d - jpose).max(axis=(2, 3))[:, s]],
+                "mpjpe_vs_truth_m": {
+                    "port": _slot_mpjpe(to.pose3d, to.updated, seq.gt_3d, s),
+                    "jax": _slot_mpjpe(jpose, np.asarray(jo.updated), seq.gt_3d, s),
+                    "port_f64_lm": _slot_mpjpe(wo.pose3d, wo.updated, seq.gt_3d, s)}}
+        emit(row)
+
+
 def steps_study(scene: str, n_frames: int) -> None:
     from multiview_motion_capture_torch.config import PipelineConfig as TConfig
     from multiview_motion_capture_torch.data.synthetic import synthetic_appearance as t_app
@@ -1022,16 +1366,19 @@ def steps_study(scene: str, n_frames: int) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--study", choices=("shelf", "wide", "cold", "default", "appearance",
-                                        "identity", "detect", "train", "steps"),
+    ap.add_argument("--study", choices=("shelf", "wide", "rig128", "bench", "cold", "default",
+                                        "appearance", "identity", "detect", "train", "steps"),
                     default="shelf")
+    ap.add_argument("--solver", choices=("gj", "gj_fused"), default="gj",
+                    help="the LM solver of --study wide")
     ap.add_argument("--scene", choices=("appearance", "default"), default="appearance",
                     help="the scene of --study steps")
     ap.add_argument("--frames", type=int, default=None,
                     help="frames of the scene (300 for shelf and default, 60 for wide "
-                         "and detect, 200 for appearance and identity, 20 for steps)")
+                         "and detect, 200 for appearance and identity, 20 for steps, "
+                         "8 for rig128, 12 for bench)")
     ap.add_argument("--draws", type=int, default=None,
-                    help="perturbation draws (12 for shelf, 2 for cold)")
+                    help="perturbation draws (12 for shelf, 2 for cold, 4 for bench)")
     args = ap.parse_args()
     torch.set_num_threads(1)
     if args.study == "steps":
@@ -1040,6 +1387,9 @@ def main() -> None:
     jax.config.update("jax_platforms", "cpu")
     if args.study == "cold":
         cold_sensitivity_study((1, 2), args.draws or 2)
+        return
+    if args.study == "bench":
+        bench_study((0, 1, 2, 3), args.frames or 12, args.draws or 4)
         return
     if args.study == "identity":
         identity_study(args.frames or 200)
@@ -1055,7 +1405,10 @@ def main() -> None:
         return
     args.draws = args.draws or 12
     if args.study == "wide":
-        wide_study(args.frames or 60)
+        wide_study(args.frames or 60, args.solver)
+        return
+    if args.study == "rig128":
+        rig128_study(args.frames or 8)
         return
     args.frames = args.frames or 300
 

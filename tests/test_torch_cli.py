@@ -2,9 +2,11 @@
 package's (`multiview_motion_capture_tpu.__main__`), on the CPU (`--cpu`):
 the flag -> config mapping, `prepare`, `run` on a small synthetic scene
 written as calibration and OpenPose files (tracklets, BVH files, the debug
-dump), and `detect` on PNG frames read with cv2."""
+dump), `detect` on PNG frames read with cv2, and `bench` on a scene in the
+Shelf dataset's layout."""
 import dataclasses
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -15,6 +17,7 @@ import torch
 from multiview_motion_capture_tpu import __main__ as j_cli
 from multiview_motion_capture_torch import __main__ as t_cli
 from multiview_motion_capture_torch import pipeline as t_pipeline
+from multiview_motion_capture_torch.config import SHELF_BENCH as T_SHELF_BENCH
 from multiview_motion_capture_torch.config import PipelineConfig as TConfig
 from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
 from multiview_motion_capture_torch.ops.fk_generic import animate_bvh
@@ -43,17 +46,38 @@ def test_config_and_crossings_flags_match_jax(preset, n_views, kw):
         assert tc is None and jc is None
 
 
-def test_unported_modes_and_flags_are_absent(capsys):
-    """`bench` is the one JAX mode left unported (it reads the Shelf
-    dataset); the help names it.  `run --mesh` is ported
-    (`test_run_mesh_spec`)."""
+def test_unported_modes_and_flags_are_absent(capsys, tmp_path):
+    """Every mode of the JAX package's CLI is in the port's parser, `bench`
+    included, and the help names nothing as unported (`run --mesh`:
+    `test_run_mesh_spec`).  `bench --cpu` runs on a tiny scene written in
+    the Shelf dataset's layout and prints bench.py's line (the scene misses
+    Shelf's quality bands, so the gate then fails, as bench.py's does); a
+    missing `--data_dir` raises FileNotFoundError."""
+    modes = {}
+    for name, cli in (("jax", j_cli), ("torch", t_cli)):
+        with pytest.raises(SystemExit):
+            cli.main(["--help"])
+        out = capsys.readouterr().out
+        modes[name] = set(re.search(r"\{([a-z_,]+)\}", out).group(1).split(","))
+    assert modes["jax"] == modes["torch"] == {"prepare", "run", "detect", "viz", "bench"}
+    assert "not ported" not in out.lower() and "--mesh" not in out
     with pytest.raises(SystemExit):
-        t_cli.main(["bench"])
-    with pytest.raises(SystemExit):
-        t_cli.main(["--help"])
-    out = capsys.readouterr().out
-    assert "Not ported from the JAX package's CLI: the bench mode." in out
-    assert "--mesh" not in out
+        t_cli.main(["bench", "--help"])
+    assert {"--data_dir", "--cpu"} <= set(re.findall(r"--[a-z_]+", capsys.readouterr().out))
+
+    torch.set_num_threads(1)
+    cfg = dataclasses.replace(T_SHELF_BENCH, max_frames=None)
+    seq = synthetic_sequence(cfg=cfg, n_frames=4, n_people=2, n_views=5, seed=2)
+    chip_smoke.write_scene_files(seq, tmp_path / "shelf", 4, kps_dir="kps_opn")
+    with pytest.raises(SystemExit, match="bench quality gate FAILED"):
+        t_cli.main(["bench", "--data_dir", str(tmp_path / "shelf"), "--cpu"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+    line = json.loads(lines[-1])
+    assert (line["metric"], line["unit"]) == ("shelf_e2e_fps_5cam_ik", "frames/s")
+    assert line["extra"]["n_frames"] == 4 and line["extra"]["backend"] == "cpu"
+    assert line["extra"]["n_tracklets"] > 0 and line["extra"]["n_degenerate_poses"] == 0
+    with pytest.raises(FileNotFoundError, match="missing_shelf"):
+        t_cli.main(["bench", "--data_dir", str(tmp_path / "missing_shelf"), "--cpu"])
 
 
 @pytest.fixture(scope="module")

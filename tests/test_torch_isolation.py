@@ -40,6 +40,33 @@ def test_port_imports_no_jax():
     assert not bad, bad
 
 
+def test_benchmark_programs_import_no_jax_and_need_the_card(tmp_path, monkeypatch):
+    """The port's benchmark scripts import no JAX either; like the package's
+    `bench` mode they run on the card unless asked for the CPU, and raise
+    without a GPU once their data is found."""
+    scripts = PKG.parent / "scripts"
+    for name in ("torch_bench_scaled.py", "torch_bench_streaming.py"):
+        bad = [m for m in _imported_modules(scripts / name) if m.split(".")[0] in FORBIDDEN]
+        assert not bad, (name, bad)
+    monkeypatch.syspath_prepend(str(scripts))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    import torch_bench_scaled
+    import torch_bench_streaming
+
+    from multiview_motion_capture_torch import bench
+
+    (tmp_path / "kps_opn").mkdir()
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        bench.measure(tmp_path)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        torch_bench_scaled.main([])
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        torch_bench_scaled.bench_config(4, 2, n_frames=2)
+    monkeypatch.setattr(torch_bench_streaming, "load", lambda *a: (None, None, None))
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        torch_bench_streaming.main(["--data_dir", str(tmp_path)])
+
+
 # the TPU kernels' modules and their counterparts (own wrappers, own names)
 KERNEL_MODULES = {"ops/als_pallas.py": "ops/als_kernel.py",
                   "ops/solve_pallas.py": "ops/solve_kernel.py"}

@@ -342,3 +342,32 @@ def test_motion_gate_distances_match(runs):
     np.testing.assert_array_equal(np.isfinite(dt.numpy()), finite)
     np.testing.assert_allclose(dt.numpy()[finite], np.asarray(dj)[finite], rtol=1e-5, atol=1e-3)
     assert not np.allclose(dt.numpy()[finite], d0.numpy()[finite])
+
+
+def test_run_offline_takes_the_jax_signature(runs):
+    """`run_offline(ctx, kps, valid, frame_idxs=None, app=None, *, state=None)`:
+    the JAX package's positional parameters (its `frame_idxs` accepted and
+    ignored), so a call written for JAX, `run_offline(ctx, kps, valid,
+    frame_idxs, app)`, gives the keyword call's outputs bit for bit; the
+    carried `state` is keyword-only."""
+    import inspect
+
+    params = inspect.signature(TT.run_offline).parameters
+    jparams = inspect.signature(JT.run_offline).parameters
+    assert list(params)[:5] == list(jparams) == ["ctx", "kps", "valid", "frame_idxs", "app"]
+    assert params["state"].kind is inspect.Parameter.KEYWORD_ONLY
+    tb, ctx = runs["tb"], runs["tctx"]
+    state, out = TT.run_offline(ctx, tb.kps, tb.valid, np.arange(N_FRAMES), None)
+    for f in TT.FrameOutput._fields:
+        np.testing.assert_array_equal(getattr(TT.outputs_to_numpy(out), f),
+                                      getattr(runs["to"], f), err_msg=f)
+    for f, a in _state_arrays(state).items():
+        np.testing.assert_array_equal(a, _state_arrays(runs["tstate"])[f], err_msg=f)
+    # the keyword-only state carries a run on: 3 frames, then the rest
+    s3, _ = TT.run_offline(ctx, tb.kps[:3], tb.valid[:3])
+    _, rest = TT.run_offline(ctx, tb.kps[3:], tb.valid[3:], state=s3)
+    for f in TT.FrameOutput._fields:
+        np.testing.assert_array_equal(getattr(TT.outputs_to_numpy(rest), f),
+                                      getattr(runs["to"], f)[3:], err_msg=f)
+    with pytest.raises(TypeError):
+        TT.run_offline(ctx, tb.kps, tb.valid, None, None, s3)
