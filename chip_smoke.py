@@ -100,6 +100,20 @@ each with the launch counters set to 0 just before it and read just after:
   C 4, N 336 and at C 5, N 276 with dead pad views; each rig's first
   frames card against CPU).
 
+- the last run programs: `profile_bench` (scripts/torch_profile_bench.py
+  on the `bench` phase's files, 60 frames: the warm, unprofiled steady
+  and device-only traced passes, the idle share of both, the traced
+  outputs bit-equal to the steady ones; B1, B2), `e2e_synthetic` and
+  `e2e_fullframe` (examples/torch_e2e_*.py at the JAX suite's sizes: a
+  PoseNet trained on the card from rendered crops or frames, detection,
+  `pipeline.run` in triangulation mode, B1; gated as the JAX suite gates
+  the JAX examples), `bench_detect` (scripts/torch_bench_detect.py's
+  `detect_track_e2e_fps` line at 10 frames with bench_detect.py's keys,
+  B1, B2; the host syncs a frame of its staged detection loops).  The
+  profile phases (`profile`, `default_profile`, `wide_profile`,
+  `scaled_profile`) report through scripts/torch_profile_bench.py's
+  `profile_tracker`.
+
 The kernel checks also launch B1 and B3 with their X output
 (`return_x=True`): X bit-equal to the plain version's, x_bin and the
 iterations those of the launch without it (`als_x`, and `x_max_abs_err`,
@@ -450,7 +464,9 @@ DEBUG_X_TOL = 0.1
 # 60 -> 30, streams 30 -> 15 frames a stream, cli 60 -> 40, mesh_cameras
 # 60 -> 30, the slice's host-sync count 300 -> SYNC_FRAMES; scaled's card
 # against CPU check takes 2 frames, not 3 (the CPU's step at 128 views
-# takes seconds a frame).
+# takes seconds a frame).  Cut again when the last run programs' phases
+# came in (a full run took 1,066 s on a slow host): scaled's rigs 30 / 20
+# / 20 -> 20 / 12 / 12 frames, stream_curve 96 -> 64 frames a k.
 #
 # the benchmark programs.  bench: the package's `bench` mode (bench.py's
 # counterpart) on the slice's scene written as files in the Shelf dataset's
@@ -460,13 +476,35 @@ DEBUG_X_TOL = 0.1
 # SCALED_PARITY_FRAMES frames of each in IK mode card against CPU.
 # stream_curve: scripts/torch_bench_streaming.py's curve on the scene files,
 # cut to STREAM_CURVE_FRAMES frames per k
-SCALED_FRAMES = {"10cam_x_10ppl": 30, "128cam_x_10ppl_4clusters": 20,
-                 "128cam_x_10ppl_5clusters_nondiv": 20}
+SCALED_FRAMES = {"10cam_x_10ppl": 20, "128cam_x_10ppl_4clusters": 12,
+                 "128cam_x_10ppl_5clusters_nondiv": 12}
 SCALED_PARITY_FRAMES = 2
 # the 128-camera, 4-cluster rig's full-IK launches, device busy time and
 # idle share a frame: a device-only profile over its first frames
 SCALED_PROFILE = ("128cam_x_10ppl_4clusters", 3)
-STREAM_CURVE_FRAMES = 96
+STREAM_CURVE_FRAMES = 64
+
+# the repository's last run programs.  The config-5 examples at the JAX
+# suite's own sizes, gated as its tests gate the JAX examples
+# (tests/test_e2e_cnn.py:13-17, tests/test_detect_cascade.py:109-114);
+# scripts/torch_bench_detect.py's line at BENCH_DETECT_FRAMES frames (its
+# 100 cut for the run's time), and the host syncs of a staged detection
+# loop over BENCH_DETECT_SYNC_FRAMES frames; scripts/torch_profile_bench.py
+# on the `bench` phase's Shelf-layout files, cut to PROFILE_BENCH_FRAMES
+# frames (its 300 cut for the run's time)
+E2E_SYNTHETIC = dict(steps=150, n_frames=8, n_people=2, n_views=4, seed=0)
+E2E_SYNTHETIC_GATES = dict(det_err_px=12.0, n_long=2, mpjpe_m=0.08)
+E2E_FULLFRAME = dict(steps=250, n_frames=8, n_people=2, n_views=4, seed=0)
+E2E_FULLFRAME_GATES = dict(recall=0.4, det_err_px=9.0, n_long=2, mpjpe_m=0.2)
+BENCH_DETECT_FRAMES = 10
+BENCH_DETECT_SYNC_FRAMES = 5
+PROFILE_BENCH_FRAMES = 60
+# the keys of scripts/bench_detect.py's line (lines 166-188)
+BENCH_DETECT_EXTRA_KEYS = {
+    "bottom_up_fps_staged", "bottom_up_fps_incl_upload", "bottom_up_fps_upload_overlap",
+    "cascade_fps_staged", "cascade_fps_incl_upload", "cascade_e2e_fps", "track_fps",
+    "n_frames", "n_views", "frame_hw", "crop_hw", "cascade_model_input",
+    "bottom_up_model_input", "bottom_up_ckpt", "backend"}
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -945,10 +983,25 @@ def timed(fn, *args, **kwargs) -> dict:
     return res
 
 
+def examples_scene():
+    """The config-5 examples' tracking configuration and the first frame of
+    the synthetic example's scene (examples/torch_e2e_synthetic.py: a
+    sequence's first frame is the same at any length)."""
+    from multiview_motion_capture_torch.config import PipelineConfig
+    from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
+
+    n_views = E2E_SYNTHETIC["n_views"]
+    cfg = PipelineConfig(n_views=n_views, max_people=4, max_tracks=6, max_frames=None)
+    seq = synthetic_sequence(n_frames=1, n_people=E2E_SYNTHETIC["n_people"], n_views=n_views,
+                             cfg=cfg, noise_px=0.0, drop_prob=0.0, seed=E2E_SYNTHETIC["seed"])
+    return cfg, seq
+
+
 def phase_kernels(torch, dev, seq, cfg, dseq, dcfg, aseq, acfg, app):
     from multiview_motion_capture_torch.config import PipelineConfig
 
     detect_cfg = PipelineConfig(**DETECT_CFG)
+    ecfg, eseq = examples_scene()
     # B1's plain version is timed in three rounds in the main row's case and
     # once elsewhere: one call takes up to ~1.6 s (N = 66)
     als = [
@@ -977,6 +1030,13 @@ def phase_kernels(torch, dev, seq, cfg, dseq, dcfg, aseq, acfg, app):
         timed(als_seeded_case, torch, dev, "detect_seeded", 4, (12,) + (8,) * 5,
               n_people=12, rank=detect_cfg.als_max_rank, max_iter=detect_cfg.als_max_iter,
               stable_iters=detect_cfg.als_stable_iters, plain_rounds=1),
+        # the config-5 examples' tracking: [6 track slots | 4 views x 4
+        # detections], N = 22, rank 12, cap 1,000; a seeded problem and the
+        # first frame of the synthetic example's scene
+        timed(als_seeded_case, torch, dev, "examples_seeded", 6, (6, 4, 4, 4, 4), n_people=6,
+              rank=ecfg.als_max_rank, max_iter=ecfg.als_max_iter,
+              stable_iters=ecfg.als_stable_iters, plain_rounds=1),
+        timed(als_frame0_case, torch, dev, eseq, ecfg, name="examples_frame0", plain_rounds=1),
     ]
     # T = 8: SHELF_BENCH's slots; T = 16: the wide rig's; T = 64 off path;
     # T = 12: the detect path's
@@ -1011,6 +1071,7 @@ def phase_kernels(torch, dev, seq, cfg, dseq, dcfg, aseq, acfg, app):
     if not all(r["ok"] for r in als + gj + als_batched + fused + gj_grid):
         raise AssertionError("a kernel disagrees with its plain version")
     return dict(als=als[0], als_default=als[3], als_appearance=als[5], als_detect=als[7],
+                als_examples=als[8], als_examples_frame0=als[9],
                 gj_solve=gj[0],
                 als_batched=als_batched[0], als_batched_c4=als_batched[1],
                 als_batched_c5=als_batched[2], fused_normal_gj=fused[0],
@@ -1037,6 +1098,12 @@ def recording_run_offline():
         pipeline.run_offline = run_offline
 
 
+# the warning CUDA's sync debug mode gives for each host sync; the mode's
+# own first-use notice ("... a prototype feature and does not yet detect all
+# synchronizing operations", once a process) is not one
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
 def count_syncs(fn):
     """Run `fn` with CUDA sync debugging on; returns (result, host syncs)."""
     import torch
@@ -1048,7 +1115,7 @@ def count_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    n = sum("synchroniz" in str(w.message) for w in caught)
+    n = sum(SYNC_WARNING in str(w.message) for w in caught)
     return out, n
 
 
@@ -1108,43 +1175,32 @@ def phase_profile(torch, dev, seq, cfg, n_frames: int = 30, name: str = "profile
     since the first slice did, or with `trace_host=False` the device only
     (as the default preset's path was first profiled: its frames launch
     ~6,000-7,000 kernels, and tracing the host's operations beside them
-    takes longer than the run it profiles).  Device busy time is the sum of the CUDA
+    takes longer than the run it profiles).  The passes and the report are
+    scripts/torch_profile_bench.py's (`profile_tracker`, without its
+    unprofiled steady pass): device busy time is the sum of the CUDA
     kernels' own durations (one stream, so they do not overlap); the idle
     share is the rest of the profiled wall time.  The profiler's own
     overhead inflates the wall time, so the idle share is an upper bound,
     higher when the host is traced."""
-    from torch.profiler import ProfilerActivity, profile
-
     from multiview_motion_capture_torch import tracker
     from multiview_motion_capture_torch.data.ingest import filter_bad_poses
 
+    pb = script_module("torch_profile_bench")
     b = filter_bad_poses(seq.batch, cfg)
     ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=dev)
     kps = torch.as_tensor(b.kps[:n_frames], device=dev)
     valid = torch.as_tensor(b.valid[:n_frames], device=dev)
-    tracker.run_offline(ctx, kps, valid)
-    torch.cuda.synchronize()
-    activities = [ProfilerActivity.CPU] * trace_host + [ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        tracker.run_offline(ctx, kps, valid)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    by_name = {}
-    for e in kernels:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    busy_ms = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]
-    out = {"phase": name, "frames": n_frames, "host_traced": trace_host,
-           "wall_ms_per_frame": wall_ms / n_frames,
-           "device_busy_ms_per_frame": busy_ms / n_frames if kernels else None,
-           "idle_share": 1.0 - busy_ms / wall_ms if kernels else None,
-           "kernel_launches_per_frame": len(kernels) / n_frames if kernels else None,
-           "top_kernels": [{"name": k[:80], "ms_per_frame": ms / n_frames,
-                            "launches_per_frame": n / n_frames} for k, (ms, n) in top]}
-    emit(out)
+    rep = pb.profile_tracker(ctx, kps, valid, n_frames, steady=False, trace_host=trace_host,
+                             n_top=n_top)
+    emit({"phase": name, "frames": n_frames, "host_traced": trace_host,
+          "wall_ms_per_frame": rep["wall_ms_per_frame"],
+          "device_busy_ms_per_frame": rep["device_busy_ms_per_frame"],
+          "idle_share": rep["idle_share"],
+          "kernel_launches_per_frame": rep["launches_per_frame"],
+          "b_kernel_launches": rep["b_kernel_launches"],
+          "top_kernels": [{"name": r["name"][:80], "ms_per_frame": r["ms"] / n_frames,
+                           "launches_per_frame": r["count"] / n_frames}
+                          for r in rep["rows"]]})
 
 
 def phase_parity(torch, dev, seq, cfg, frames=PARITY_FRAMES, name="parity", app=None):
@@ -1606,19 +1662,6 @@ def person_tints(n_people: int):
                      for h in hues]).astype(np.float32)
 
 
-def scaled_cameras(cams, scale: float):
-    """Calibration for frames rendered at `scale`: K' = diag(s, s, 1) K
-    (examples/e2e_fullframe.scaled_cameras on the port's CameraBank)."""
-    import numpy as np
-
-    from multiview_motion_capture_torch.cameras import CameraBank
-
-    K = np.asarray(cams.K, dtype=np.float64).copy()
-    K[:, :2, :] *= scale
-    wh = np.asarray(cams.img_wh, dtype=np.float64) * scale
-    return CameraBank.from_k_rt(K, np.asarray(cams.Rt, dtype=np.float64), wh)
-
-
 def to_uint8(frames):
     import numpy as np
 
@@ -1628,6 +1671,7 @@ def to_uint8(frames):
 def detect_scene(n_frames: int = None):
     """The detect path's scene: (sequence, tracker config, uint8 frames (F,
     V, 192, 256, 3), cameras scaled to the frames)."""
+    from examples.torch_e2e_fullframe import scaled_cameras
     from multiview_motion_capture_torch.config import PipelineConfig
     from multiview_motion_capture_torch.data.detect_train import render_sequence
     from multiview_motion_capture_torch.data.render import RenderConfig
@@ -2460,6 +2504,7 @@ def phase_detect_cli(torch, dev, frames):
 
     import numpy as np
 
+    from examples.torch_e2e_fullframe import scaled_cameras
     from multiview_motion_capture_torch import __main__ as cli
     from multiview_motion_capture_torch import pipeline
     from multiview_motion_capture_torch.config import PipelineConfig
@@ -3172,6 +3217,119 @@ def phase_stream_curve(torch, dev, root: Path):
     return launches
 
 
+def phase_e2e_synthetic(torch, dev):
+    """examples/torch_e2e_synthetic.py on the card at E2E_SYNTHETIC: crops
+    rendered, the top-down PoseNet trained, detected, tracked in
+    triangulation mode (B1); gated as tests/test_e2e_cnn.py gates the JAX
+    example."""
+    import examples.torch_e2e_synthetic as ex
+
+    zero_launch_counts()
+    det_err, n_long, mpjpe = ex.main(device=dev, **E2E_SYNTHETIC)
+    launches = launch_counts()
+    g = E2E_SYNTHETIC_GATES
+    ok = det_err < g["det_err_px"] and n_long == g["n_long"] and mpjpe < g["mpjpe_m"]
+    emit({"phase": "e2e_synthetic", **E2E_SYNTHETIC, "det_err_px": float(det_err),
+          "n_long": n_long, "mpjpe_m": mpjpe, "gates": g, "gates_met": ok,
+          "launches": launches})
+    if not ok:
+        raise AssertionError("e2e_synthetic misses the JAX test's gates")
+    if launches["als"] == 0:
+        raise AssertionError("e2e_synthetic launched no ALS kernel")
+    return launches
+
+
+def phase_e2e_fullframe(torch, dev):
+    """examples/torch_e2e_fullframe.py on the card at E2E_FULLFRAME: frames
+    rendered, the PoseNet trained on full frames and crops, the cascade
+    detector, tracking in triangulation mode (B1); gated as
+    tests/test_detect_cascade.py gates the JAX example."""
+    import examples.torch_e2e_fullframe as ex
+
+    zero_launch_counts()
+    recall, det_err, n_long, mpjpe = ex.main(device=dev, **E2E_FULLFRAME)
+    launches = launch_counts()
+    g = E2E_FULLFRAME_GATES
+    ok = (recall > g["recall"] and det_err < g["det_err_px"] and n_long == g["n_long"]
+          and mpjpe < g["mpjpe_m"])
+    emit({"phase": "e2e_fullframe", **E2E_FULLFRAME, "recall": recall,
+          "det_err_px": det_err, "n_long": n_long, "mpjpe_m": mpjpe, "gates": g,
+          "gates_met": ok, "launches": launches})
+    if not ok:
+        raise AssertionError("e2e_fullframe misses the JAX test's gates")
+    if launches["als"] == 0:
+        raise AssertionError("e2e_fullframe launched no ALS kernel")
+    return launches
+
+
+def phase_bench_detect(torch, dev):
+    """scripts/torch_bench_detect.py's line at BENCH_DETECT_FRAMES frames
+    (the five detection timings, then pipeline.run with IK: B1, B2), with
+    bench_detect.py's keys; then the host syncs of its staged loops over
+    BENCH_DETECT_SYNC_FRAMES frames (CUDA's sync debug mode: a host read
+    inside a detector would serialise every frame)."""
+    import numpy as np
+
+    bd = script_module("torch_bench_detect")
+    zero_launch_counts()
+    line = bd.main(n_frames=BENCH_DETECT_FRAMES, device=dev)
+    launches = launch_counts()
+    keys_ok = (set(line) == {"metric", "value", "unit", "extra"}
+               and line["metric"] == "detect_track_e2e_fps"
+               and BENCH_DETECT_EXTRA_KEYS <= set(line["extra"])
+               and line["extra"]["backend"] == "cuda")
+    cfg, _, _, _, images = bd.make_frames(BENCH_DETECT_SYNC_FRAMES, 3, 5)
+    d = bd.detectors(cfg, torch.device(dev))
+    staged = torch.as_tensor((images * 255).astype(np.uint8), device=dev)
+    syncs = {}
+    for name, det, net in (("cascade", d["detect"], d["net"]),
+                           ("bottom_up", d["detect_bu"], d["bu_net"])):
+        det(net, staged[0])
+        torch.cuda.synchronize()
+        _, n = count_syncs(lambda: [det(net, staged[f]) for f in range(len(staged))])
+        syncs[name] = n / len(staged)
+    emit({"phase": "bench_detect", "line": line, "keys_match_bench_detect_py": keys_ok,
+          "staged_loop_host_syncs_per_frame": syncs, "launches": launches})
+    if not keys_ok:
+        raise AssertionError("torch_bench_detect's line lacks bench_detect.py's keys")
+    if any(syncs.values()):
+        raise AssertionError("a staged detection loop synchronises with the host")
+    if launches["als"] == 0 or launches["gj_solve"] == 0:
+        raise AssertionError("bench_detect's tracking launched no ALS or LM kernel")
+    return launches
+
+
+def phase_profile_bench(torch, dev, root: Path):
+    """scripts/torch_profile_bench.py on the `bench` phase's Shelf-layout
+    files, cut to PROFILE_BENCH_FRAMES frames (SHELF_BENCH, IK: B1, B2): the
+    warm, steady (unprofiled) and device-only traced passes, the report's
+    rows, launches and the idle share of both passes; the traced pass's
+    outputs bit-equal to the steady pass's."""
+    import numpy as np
+
+    from multiview_motion_capture_torch import tracker
+
+    pb = script_module("torch_profile_bench")
+    zero_launch_counts()
+    rep = pb.main(["--data_dir", str(root), "--max_frames", str(PROFILE_BENCH_FRAMES)])
+    launches = launch_counts()
+    steady, traced = rep["outputs"]
+    equal = all(np.array_equal(getattr(steady, f), getattr(traced, f))
+                for f in tracker.FrameOutput._fields)
+    labels = [r["name"] for r in rep["rows"]]
+    emit({"phase": "profile_bench", "report": {k: v for k, v in rep.items()
+                                               if k not in ("rows", "outputs")},
+          "top_kernels": rep["rows"][:12], "traced_equals_steady": equal,
+          "launches": launches})
+    if not (equal and pb.B_KERNELS["als_kernel"] in labels
+            and pb.B_KERNELS["gj_solve_kernel"] in labels):
+        raise AssertionError("profile_bench: traced pass differs, or a B-kernel is missing")
+    if not (launches["als"] > 0 and launches["gj_solve"] > 0
+            and 0.0 <= rep["idle_share_unprofiled"] < 1.0):
+        raise AssertionError("profile_bench launched no kernel, or its idle share is off")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3253,7 +3411,12 @@ def main() -> int:
                                    Path(tmp))
         curve_launches = run_phase("stream_curve", phase_stream_curve, torch, "cuda",
                                    Path(tmp))
+        profile_bench_launches = run_phase("profile_bench", phase_profile_bench, torch,
+                                           "cuda", Path(tmp))
     scaled_launches = run_phase("scaled", phase_scaled, torch, "cuda")
+    synthetic_launches = run_phase("e2e_synthetic", phase_e2e_synthetic, torch, "cuda")
+    fullframe_launches = run_phase("e2e_fullframe", phase_e2e_fullframe, torch, "cuda")
+    bench_detect_launches = run_phase("bench_detect", phase_bench_detect, torch, "cuda")
 
     paths = {"slice": slice_launches, "default": default_launches, "no_ik": no_ik_launches,
              "stream": stream_launches, "appearance": app_launches,
@@ -3263,7 +3426,9 @@ def main() -> int:
              "wide_fused": fused_launches, "mesh_wide": mesh_wide_launches,
              "mesh_wide_fused": mesh_fused_launches, "mesh_cameras": mesh_cameras_launches,
              "mesh_spec": mesh_spec_launches, "streams": streams_launches,
-             "bench": bench_launches, "stream_curve": curve_launches, **scaled_launches}
+             "bench": bench_launches, "stream_curve": curve_launches, **scaled_launches,
+             "profile_bench": profile_bench_launches, "e2e_synthetic": synthetic_launches,
+             "e2e_fullframe": fullframe_launches, "bench_detect": bench_detect_launches}
 
     def row(kernel, replaces, r, library_ms):
         by_path = {p: c[kernel.name] for p, c in paths.items() if c[kernel.name]}
@@ -3287,10 +3452,11 @@ def main() -> int:
     tpu = "multiview_motion_capture_tpu/ops/"
     als_row = row(cuda_lib.ALS, tpu + "als_pallas.py:130", checks["als"], None)
     # B1 at the default preset's shape (N = 66, rank 32), the appearance
-    # scene's (N = 116, rank 32, a cluster of 16) and the detect path's (N =
-    # 52, rank 24), the same fields
+    # scene's (N = 116, rank 32, a cluster of 16), the detect path's (N =
+    # 52, rank 24) and the examples' (N = 22, rank 12), the same fields
     for key, case in (("at_default_preset", "als_default"), ("at_appearance", "als_appearance"),
-                      ("at_detect", "als_detect")):
+                      ("at_detect", "als_detect"), ("at_examples", "als_examples"),
+                      ("at_examples_frame0", "als_examples_frame0")):
         als_row[key] = {k: checks[case][k] for k in (
             "case", "n", "rank", "iters_kernel", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "cluster", "ms_per_iter", "x_max_abs_err", "ms_with_x")}

@@ -303,15 +303,17 @@ def make_bottom_up_detector(
     return detect
 
 
-class _Uploader:
+class FrameUploader:
     """Host frames to the detector's device, each on a side stream from
-    pinned memory, so frame f+1's copy overlaps frame f's forward."""
+    pinned memory, so frame f+1's copy overlaps frame f's forward:
+    `start(frame)` begins a copy, `take(upload)` makes the current stream
+    wait for it and returns the device tensor."""
 
     def __init__(self, dev: torch.device):
         self.dev = dev
         self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
-    def issue(self, frame):
+    def start(self, frame):
         t = torch.as_tensor(frame)
         if self.stream is None or t.device.type == "cuda":
             return t.to(self.dev), None
@@ -349,12 +351,12 @@ def frames_to_frame_batch(detect_fn, net, images, cfg: PipelineConfig,
     kps_out = None  # allocated from the detector's own K on the first frame
     valid_out = np.zeros((F_, cfg.n_views, P), dtype=bool)
     app_out = None
-    up = _Uploader(_device_of(net))
-    nxt = up.issue(images[0]) if F_ else None
+    up = FrameUploader(_device_of(net))
+    nxt = up.start(images[0]) if F_ else None
     for f in range(F_):
         cur = up.take(nxt)
         if f + 1 < F_:
-            nxt = up.issue(images[f + 1])
+            nxt = up.start(images[f + 1])
         out = detect_fn(net, cur)
         kps, valid = out[0], out[2]
         V, Pd, K = kps.shape[:3]

@@ -619,3 +619,111 @@ def test_kernels_launch_on_a_second_device():
     torch.cuda.set_device(0)
     _every_kernel_once(torch.device("cuda", 1))
     assert torch.cuda.current_device() == 0
+
+
+# ---------------------------------------------------------------------------
+# the run programs (scripts/torch_bench_detect.py, examples/torch_e2e_*.py)
+# ---------------------------------------------------------------------------
+
+def _program(folder, name):
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / folder))
+    return __import__(name)
+
+
+def test_bench_detect_upload_modes_give_equal_detections(cuda):
+    """torch_bench_detect hands the bottom-up detector each frame three
+    ways: copied from pageable memory in the loop, staged on the card, and
+    copied from pinned memory on a side stream ahead of the forward
+    (`FrameUploader`).  The detections are the same bits."""
+    from multiview_motion_capture_torch.data.detect import FrameUploader
+
+    bd = _program("scripts", "torch_bench_detect")
+    cfg, _, _, _, images = bd.make_frames(3, 3, 5)
+    d = bd.detectors(cfg, cuda)
+    detect, net = d["detect_bu"], d["bu_net"]
+    u8 = (images * 255).astype(np.uint8)
+
+    def host(out):
+        return [a.cpu().numpy() for a in out]
+
+    pageable = [detect(net, torch.as_tensor(u8[f], device=cuda)) for f in range(len(u8))]
+    staged_t = torch.as_tensor(u8, device=cuda)
+    staged = [detect(net, staged_t[f]) for f in range(len(u8))]
+    up = FrameUploader(cuda)
+    overlapped, nxt = [], up.start(u8[0])
+    for f in range(len(u8)):
+        cur = up.take(nxt)
+        if f + 1 < len(u8):
+            nxt = up.start(u8[f + 1])
+        overlapped.append(detect(net, cur))
+    assert any(bool(o[2].any()) for o in pageable)
+    for a, b, c in zip(pageable, staged, overlapped):
+        for x, y, z in zip(host(a), host(b), host(c)):
+            assert np.array_equal(x, y) and np.array_equal(x, z)
+
+
+def test_e2e_synthetic_card_runs_bit_equal(cuda, monkeypatch):
+    """Two card runs of the synthetic example (a short training from the
+    same seeds, detection, tracking) give the same detections, tracklets
+    and numbers, bit for bit: cuDNN runs deterministic algorithms
+    (`utils.precision.high_precision`) and every other step is
+    deterministic."""
+    from multiview_motion_capture_torch import pipeline
+
+    ex = _program("examples", "torch_e2e_synthetic")
+    runs = []
+    real = pipeline.run
+
+    def recording(batch, *args, **kwargs):
+        res = real(batch, *args, **kwargs)
+        runs[-1]["batch"], runs[-1]["tracklets"] = batch, res.tracklets
+        return res
+
+    monkeypatch.setattr(pipeline, "run", recording)
+    for _ in range(2):
+        runs.append({})
+        runs[-1]["out"] = ex.main(steps=20, n_frames=4, device=cuda)
+    a, b = runs
+    assert a["out"] == b["out"]
+    assert np.array_equal(a["batch"].kps, b["batch"].kps)
+    assert np.array_equal(a["batch"].valid, b["batch"].valid)
+    assert len(a["tracklets"]) == len(b["tracklets"]) > 0
+    for s, t in zip(a["tracklets"], b["tracklets"]):
+        assert s.frame_idxs == t.frame_idxs and np.array_equal(s.poses_3d, t.poses_3d)
+
+
+def test_profile_report_reads_the_card_trace_as_the_profiler_does(cuda):
+    """torch_profile_bench reads a card trace from the profiler's raw records;
+    the profiler's own parse (`prof.events()`) of the same trace gives the
+    same kernels, counts and durations (3 SHELF_BENCH frames, B1 and B2
+    among them)."""
+    import dataclasses
+
+    from multiview_motion_capture_torch import tracker
+    from multiview_motion_capture_torch.config import SHELF_BENCH
+    from multiview_motion_capture_torch.data.ingest import filter_bad_poses
+    from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
+
+    pb = _program("scripts", "torch_profile_bench")
+    cfg = dataclasses.replace(SHELF_BENCH, max_frames=None)
+    seq = synthetic_sequence(cfg=cfg, n_frames=3, n_people=3, n_views=5, seed=2)
+    b = filter_bad_poses(seq.batch, cfg)
+    ctx = tracker.TrackerContext.build(seq.cameras, cfg, device=cuda)
+    kps, valid = torch.as_tensor(b.kps, device=cuda), torch.as_tensor(b.valid, device=cuda)
+    tracker.run_offline(ctx, kps, valid)
+    prof, _, _ = pb.trace(lambda: tracker.run_offline(ctx, kps, valid), cuda)
+    ours, theirs = {}, {}
+    for name, ns in pb.device_events(prof, cuda):
+        t, n = ours.get(pb.kernel_label(name), (0.0, 0))
+        ours[pb.kernel_label(name)] = (t + ns, n + 1)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t, n = theirs.get(pb.kernel_label(e.name), (0.0, 0))
+            theirs[pb.kernel_label(e.name)] = (t + e.time_range.elapsed_us() * 1e3, n + 1)
+    assert pb.B_KERNELS["als_kernel"] in ours and pb.B_KERNELS["gj_solve_kernel"] in ours
+    assert sorted(ours) == sorted(theirs)
+    for k, (ns, n) in ours.items():
+        assert n == theirs[k][1] and abs(ns - theirs[k][0]) <= n, k

@@ -30,6 +30,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
+from examples.torch_e2e_fullframe import scaled_cameras as torch_scaled_cameras  # noqa: E402
 from multiview_motion_capture_torch.config import PipelineConfig as TConfig  # noqa: E402
 from multiview_motion_capture_torch.data import detect as t_detect  # noqa: E402
 from multiview_motion_capture_torch.data import detect_train as t_train  # noqa: E402
@@ -391,7 +392,7 @@ def test_shipped_e2e_scene_tracks():
     tm, tn = t_ckpt.load_posenet(CKPT / "posenet_synth.npz", device="cpu")
     td = t_detect.make_bottom_up_detector(tm, max_people=4, center_min_score=0.2)
     tb = t_detect.frames_to_frame_batch(td, tn, images, tcfg)
-    tres = t_pipeline.run(tb, chip_smoke.scaled_cameras(ts.cameras, 0.25), tcfg, use_ik=False,
+    tres = t_pipeline.run(tb, torch_scaled_cameras(ts.cameras, 0.25), tcfg, use_ik=False,
                           device="cpu")
     t_long = [t for t in tres.tracklets if len(t) >= 6]
     assert len(t_long) == 2, [len(t) for t in tres.tracklets]

@@ -5,6 +5,7 @@ looks for them.  Nothing here needs JAX or a GPU."""
 import ast
 import dataclasses
 import importlib
+import re
 from pathlib import Path
 
 import pytest
@@ -41,18 +42,29 @@ def test_port_imports_no_jax():
 
 
 def test_benchmark_programs_import_no_jax_and_need_the_card(tmp_path, monkeypatch):
-    """The port's benchmark scripts import no JAX either; like the package's
-    `bench` mode they run on the card unless asked for the CPU, and raise
-    without a GPU once their data is found."""
-    scripts = PKG.parent / "scripts"
-    for name in ("torch_bench_scaled.py", "torch_bench_streaming.py"):
-        bad = [m for m in _imported_modules(scripts / name) if m.split(".")[0] in FORBIDDEN]
-        assert not bad, (name, bad)
-    monkeypatch.syspath_prepend(str(scripts))
+    """The port's run programs (benchmarks, profilers, examples) import no
+    JAX either; like the package's `bench` mode they run on the card unless
+    asked for the CPU, and raise without a GPU once their data is found."""
+    root = PKG.parent
+    programs = [root / "scripts" / f"{n}.py" for n in (
+        "torch_bench_scaled", "torch_bench_streaming", "torch_bench_detect",
+        "torch_profile_bench", "torch_profile_cam128")] + [
+        root / "examples" / f"{n}.py" for n in ("torch_e2e_fullframe", "torch_e2e_synthetic")]
+    for path in programs:
+        bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN + ("examples",)
+               and not m.startswith("examples.torch_")]
+        assert not bad, (path.name, bad)
+    monkeypatch.syspath_prepend(str(root / "scripts"))
+    monkeypatch.syspath_prepend(str(root))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    import torch_bench_detect
     import torch_bench_scaled
     import torch_bench_streaming
+    import torch_profile_bench
+    import torch_profile_cam128
 
+    import examples.torch_e2e_fullframe as fullframe
+    import examples.torch_e2e_synthetic as synthetic
     from multiview_motion_capture_torch import bench
 
     (tmp_path / "kps_opn").mkdir()
@@ -65,6 +77,63 @@ def test_benchmark_programs_import_no_jax_and_need_the_card(tmp_path, monkeypatc
     monkeypatch.setattr(torch_bench_streaming, "load", lambda *a: (None, None, None))
     with pytest.raises(RuntimeError, match="device='cuda'"):
         torch_bench_streaming.main(["--data_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        torch_bench_detect.main(n_frames=1)
+    monkeypatch.setattr(torch_profile_bench, "load", lambda *a: (None, None, None))
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        torch_profile_bench.main(["--data_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        torch_profile_cam128.main(["--assoc-only"])
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        fullframe.main(steps=1, n_frames=1)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        synthetic.main(steps=1, n_frames=1)
+    # with `--cpu` the profilers ask for the CPU
+    asked = []
+
+    class Asked(Exception):
+        pass
+
+    def record(device="cuda"):
+        asked.append(str(device))
+        raise Asked
+
+    monkeypatch.setattr(precision, "resolve_device", record)
+    with pytest.raises(Asked):
+        torch_profile_bench.main(["--data_dir", str(tmp_path), "--cpu"])
+    with pytest.raises(Asked):
+        torch_profile_cam128.main(["--cpu"])
+    assert asked == ["cpu", "cpu"]
+
+
+def _counterpart_of(path: Path):
+    """The program a `torch_` program names as its JAX counterpart
+    ("counterpart of `examples/...`" in its docstring), or None."""
+    doc = ast.get_docstring(ast.parse(path.read_text())) or ""
+    m = re.search(r"counterpart of\s+`((?:examples|scripts)/\w+\.py)`", doc)
+    return m.group(1) if m else None
+
+
+def test_every_run_program_is_ported_or_queued():
+    """Every program of `examples/` and `scripts/` has a `torch_`
+    counterpart that names it, or is one of the studies ROADMAP.md's last
+    slice still queues (scripts/xla_repros/, TPU compiler repros, and the
+    shell scripts are no programs of the system).  So the queue and the
+    tree cannot drift apart: a study ported stays queued only until its
+    counterpart exists, and a program without one must be queued."""
+    root = PKG.parent
+    programs = {f"{d}/{p.name}" for d in ("examples", "scripts")
+                for p in (root / d).glob("*.py") if not p.name.startswith("torch_")}
+    ported = {_counterpart_of(p) for d in ("examples", "scripts")
+              for p in (root / d).glob("torch_*.py")} - {None}
+    roadmap = (root / "ROADMAP.md").read_text()
+    section = roadmap[roadmap.index("The last slice: the eight studies"):]
+    section = section[:section.index("\n### ")]
+    queued = set(re.findall(r"`(scripts/\w+\.py)`", section))
+    assert len(programs) > len(queued) > 0
+    assert ported <= programs, ported - programs
+    assert not ported & queued, ported & queued
+    assert programs == ported | queued, programs - ported - queued
 
 
 # the TPU kernels' modules and their counterparts (own wrappers, own names)
