@@ -114,6 +114,15 @@ each with the launch counters set to 0 just before it and read just after:
   `scaled_profile`) report through scripts/torch_profile_bench.py's
   `profile_tracker`.
 
+- the eight research studies (`studies`, STUDY_CUTS' sizes): the
+  benchmark's config bisection (B1, B2) and the fragmentation and oracle
+  parity studies (B1; one scipy-oracle run between them) on the `bench`
+  phase's files, the LM iteration study on the 64-camera rig (B3, B2),
+  the identity study on two of its configurations (B1, B2), the
+  appearance end-to-end study (B1), the crowd-detection and style
+  hold-out studies (cuDNN only); each study's JSON held to its JAX
+  script's keys, and each one's kernels launched.
+
 The kernel checks also launch B1 and B3 with their X output
 (`return_x=True`): X bit-equal to the plain version's, x_bin and the
 iterations those of the launch without it (`als_x`, and `x_max_abs_err`,
@@ -466,7 +475,10 @@ DEBUG_X_TOL = 0.1
 # against CPU check takes 2 frames, not 3 (the CPU's step at 128 views
 # takes seconds a frame).  Cut again when the last run programs' phases
 # came in (a full run took 1,066 s on a slow host): scaled's rigs 30 / 20
-# / 20 -> 20 / 12 / 12 frames, stream_curve 96 -> 64 frames a k.
+# / 20 -> 20 / 12 / 12 frames, stream_curve 96 -> 64 frames a k.  Cut
+# again when the research studies' phase came in (a full run took 1,037 s
+# on a slow host): scaled's rigs -> 12 / 8 / 8 frames, stream_curve -> 32
+# frames a k, profile_bench 60 -> 30 frames, the studies' bisect 30 -> 20.
 #
 # the benchmark programs.  bench: the package's `bench` mode (bench.py's
 # counterpart) on the slice's scene written as files in the Shelf dataset's
@@ -476,13 +488,13 @@ DEBUG_X_TOL = 0.1
 # SCALED_PARITY_FRAMES frames of each in IK mode card against CPU.
 # stream_curve: scripts/torch_bench_streaming.py's curve on the scene files,
 # cut to STREAM_CURVE_FRAMES frames per k
-SCALED_FRAMES = {"10cam_x_10ppl": 20, "128cam_x_10ppl_4clusters": 12,
-                 "128cam_x_10ppl_5clusters_nondiv": 12}
+SCALED_FRAMES = {"10cam_x_10ppl": 12, "128cam_x_10ppl_4clusters": 8,
+                 "128cam_x_10ppl_5clusters_nondiv": 8}
 SCALED_PARITY_FRAMES = 2
 # the 128-camera, 4-cluster rig's full-IK launches, device busy time and
 # idle share a frame: a device-only profile over its first frames
 SCALED_PROFILE = ("128cam_x_10ppl_4clusters", 3)
-STREAM_CURVE_FRAMES = 64
+STREAM_CURVE_FRAMES = 32
 
 # the repository's last run programs.  The config-5 examples at the JAX
 # suite's own sizes, gated as its tests gate the JAX examples
@@ -498,13 +510,65 @@ E2E_FULLFRAME = dict(steps=250, n_frames=8, n_people=2, n_views=4, seed=0)
 E2E_FULLFRAME_GATES = dict(recall=0.4, det_err_px=9.0, n_long=2, mpjpe_m=0.2)
 BENCH_DETECT_FRAMES = 10
 BENCH_DETECT_SYNC_FRAMES = 5
-PROFILE_BENCH_FRAMES = 60
+PROFILE_BENCH_FRAMES = 30
 # the keys of scripts/bench_detect.py's line (lines 166-188)
 BENCH_DETECT_EXTRA_KEYS = {
     "bottom_up_fps_staged", "bottom_up_fps_incl_upload", "bottom_up_fps_upload_overlap",
     "cascade_fps_staged", "cascade_fps_incl_upload", "cascade_e2e_fps", "track_fps",
     "n_frames", "n_views", "frame_hw", "crop_hw", "cascade_model_input",
     "bottom_up_model_input", "bottom_up_ckpt", "backend"}
+
+# the eight research studies' ports (scripts/torch_*study*.py,
+# torch_bench_quality_bisect.py, torch_detector_style_holdout.py) at cut
+# sizes (their own: 300 frames, 30 on the 64-camera rig, nine identity
+# rigs of 60-200 frames, 60, 8 frames and 3 seeds); bisect, fragmentation
+# and oracle parity read the `bench` phase's Shelf-layout files, the last
+# two sharing one oracle run (host work, ~1 s a frame).  Each study's JSON
+# is held to the keys of its JAX script (STUDY_KEYS, with the lines that
+# build them there) and each kernel the study puts on a path must launch.
+# bisect 60 -> 30 frames after a first card run of the phase took 118 s
+# (39 s of it bisect's 4 variants x 2 passes), then -> 20 with the cuts
+# above
+STUDY_CUTS = dict(bisect_frames=20, ik_frames=10, oracle_frames=20,
+                  identity=("10cam_x_10ppl_f200",
+                            "10cam_x_10ppl_f200_appearance_extractorgrade_crossings"),
+                  identity_frames=30, appearance_frames=15, crowd_frames=2,
+                  style_seeds=[3000])
+STUDY_KEYS = {
+    # scripts/bench_quality_bisect.py:40-59
+    "bisect": {"current_r4", "cold_stages_2", "cold2_rescue_off", "rescue_off"},
+    "bisect_row": {"fps", "mean_px", "median_px", "n_tracklets", "top_lengths"},
+    # scripts/ik_iteration_study.py:75-122
+    "ik_iteration": {"rig", "warm_default(stages1,ftol2e-6,b5)", "warm_loose(ftol1e-4)",
+                     "warm_budget3", "warm_stages2(parity)"},
+    "ik_iteration_row": {"frames", "mean", "p50", "max", "budget_hit_frac"},
+    # scripts/fragmentation_study.py:196-204
+    "fragmentation": {"tracker_tracklets", "oracle_tracklets", "tracker_deaths",
+                      "excess_deaths", "excess_f64_would_keep", "excess_margin_lt_0.1",
+                      "detail"},
+    # scripts/parity_study.py:117-149
+    "oracle_parity": {"n_frames", "tpu", "oracle", "matched_pairs", "matched_oracle_frames",
+                      "mpjpe_cm", "frame131_zoom", "tpu_events_120_145",
+                      "oracle_events_120_145", "active_count_agreement"},
+    # scripts/identity_study.py:79-113
+    "identity_row": {"raw", "reid", "reid+ghost_filter"},
+    "identity_crossings_row": {"crossings_resolved", "crossing_events", "crossing_swaps"},
+    # scripts/appearance_e2e_study.py:150-182
+    "appearance_e2e": {"extractor", "extractor_cos_same", "extractor_cos_diff",
+                       "geometry_only", "appearance_gain60", "appearance_gain20_default",
+                       "appearance_auto_target8", "appearance_crossings",
+                       "appearance_gain40", "appearance_crossings_gain40",
+                       "appearance_crossings_gain60", "appearance_crossings_auto20"},
+    "appearance_e2e_row": {"raw_tracks", "raw_idf1", "raw_idsw", "reid_idf1", "reid_idsw"},
+    # scripts/crowd_detect_study.py:173-216
+    "crowd_detect": {"p4_d1.2", "p6_d0.8", "p8_d0.5", "p10_d0.3"},
+    "crowd_detect_row": {"recall", "recall_detectable", "frac_detectable", "precision",
+                         "err_px", "center_recall", "oracle_center_recall",
+                         "oracle_center_err_px", "centers"},
+    # scripts/detector_style_holdout.py:75-104
+    "style_holdout": {"styles", "calibration", "best_threshold"},
+}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -3330,6 +3394,153 @@ def phase_profile_bench(torch, dev, root: Path):
     return launches
 
 
+def study_call(fn, *args, **kwargs):
+    """One study's run with the launch counters set to 0 just before it
+    and read just after: (its JSON, launches, wall s).  What the study
+    prints goes to stderr (the phase prints the JSON on its own line)."""
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        out = fn(*args, **kwargs)
+    return out, launch_counts(), time.perf_counter() - t0
+
+
+def phase_studies(torch, dev, root: Path):
+    """The eight research studies' ports on the card at STUDY_CUTS' sizes:
+    bench_quality_bisect (B1, B2), ik_iteration (the 64-camera rig: B3, B2;
+    every count within its budget), fragmentation and oracle_parity (the
+    bench phase's files, one oracle run: B1; their tracklets bit-equal to
+    `replay_states` / `pipeline.run` on the same files), identity (B1 at N
+    116, B2), appearance_e2e (B1), crowd_detect and style_holdout (no TPU
+    kernel: cuDNN).  Each study's JSON holds its JAX script's keys.  Returns
+    each study's launches by path name `study_<name>`."""
+    import numpy as np
+
+    from multiview_motion_capture_torch import pipeline, tracker
+    from multiview_motion_capture_torch.config import PipelineConfig
+    from multiview_motion_capture_torch.data.ingest import filter_bad_poses, load_openpose_dir
+
+    cuts, keys = STUDY_CUTS, STUDY_KEYS
+    cache = root / "oracle_cache"
+    by_path, failed = {}, []
+
+    def report(name, line, launches, wall_s, checks, expect):
+        missing = [k for k, ok in checks.items() if not ok]
+        no_launch = [k for k in expect if launches[k] == 0]
+        emit({"phase": "studies", "study": name, "wall_s": wall_s, "json": line,
+              "launches": launches, "checks": checks})
+        by_path["study_" + name] = launches
+        if missing or no_launch:
+            failed.append((name, missing, no_launch))
+
+    # 1. the benchmark's config bisection on the scene files
+    bq = script_module("torch_bench_quality_bisect")
+    out, launches, wall = study_call(bq.main,
+                                     ["--data_dir", str(root), "--max_frames",
+                                      str(cuts["bisect_frames"])])
+    report("bench_quality_bisect", out, launches, wall, {
+        "keys": set(out) == keys["bisect"]
+        and all(set(r) == keys["bisect_row"] for r in out.values()),
+        "tracklets": all(r["n_tracklets"] > 0 for r in out.values())},
+        ("als", "gj_solve"))
+
+    # 2. the LM's executed iterations on the 64-camera rig
+    ik = script_module("torch_ik_iteration_study")
+    per_frame = {}
+    line, launches, wall = study_call(ik.main, [], n_frames=cuts["ik_frames"],
+                                      outputs=per_frame)
+    ex = line["extra"]
+    within = {label: ex[label]["max"] <= v[3] * v[0] for label, v in ik.VARIANTS.items()}
+    report("ik_iteration", line, launches, wall, {
+        "keys": set(ex) == keys["ik_iteration"]
+        and all(set(ex[k]) == keys["ik_iteration_row"] for k in ik.VARIANTS),
+        "counts_within_budget": all(within.values()),
+        "frames": all(ex[k]["frames"] > 0 for k in ik.VARIANTS)},
+        ("als_batched", "gj_solve"))
+
+    # 3-4. fragmentation and the oracle's parity on the scene files, one
+    # oracle run between them; each study's tracklets against the tracker
+    # run on its own on the same files
+    n = cuts["oracle_frames"]
+    fs = script_module("torch_fragmentation_study")
+    got = {}
+    out, launches, wall = study_call(fs.main, [
+        "--data_dir", str(root), "--max_frames", str(n), "--oracle_cache", str(cache)],
+        outputs=got)
+    cfg = PipelineConfig(max_frames=n, track_rescue_px=0.0)
+    batch, cams = fs.load_shelf(cfg, root, n)
+    ctx = tracker.TrackerContext.build(cams, cfg, device=dev)
+    ref = tracker.outputs_to_numpy(tracker.run_offline(ctx, batch.kps[:n], batch.valid[:n])[1])
+    report("fragmentation", out, launches, wall, {
+        "keys": set(out) == keys["fragmentation"],
+        "outputs_equal_run_offline": all(
+            np.array_equal(getattr(got["outs"], f), getattr(ref, f))
+            for f in tracker.FrameOutput._fields),
+        "tracklets": out["tracker_tracklets"] == len(got["tracklets"]) > 0},
+        ("als",))
+
+    ps = script_module("torch_oracle_parity_study")
+    got = {}
+    out, launches, wall = study_call(ps.main, [
+        "--data_dir", str(root), "--max_frames", str(n), "--oracle_cache", str(cache),
+        "--out", str(root / "oracle_parity.json")], outputs=got)
+    pcfg = PipelineConfig.parity(max_frames=n)
+    pbatch = filter_bad_poses(load_openpose_dir(root / "kps_opn", pcfg), pcfg)
+    pres = pipeline.run(pbatch, cams, pcfg, use_ik=True, device=dev)
+    report("oracle_parity", out, launches, wall, {
+        "keys": keys["oracle_parity"] <= set(out),
+        "tracklets_equal_pipeline_run": tracklets_equal(got["result"].tracklets,
+                                                        pres.tracklets),
+        "oracle_from_cache": out["oracle"]["runtime_s"] < 5.0,
+        "written": json.loads((root / "oracle_parity.json").read_text())["n_frames"] == n},
+        ("als",))
+
+    # 5. identity on two of its configurations
+    ids = script_module("torch_identity_study")
+    line, launches, wall = study_call(ids.main, [], names=cuts["identity"],
+                                      n_frames=cuts["identity_frames"])
+    ex = line["extra"]
+    report("identity", line, launches, wall, {
+        "keys": set(ex) == set(cuts["identity"]) | {"backend"}
+        and all(keys["identity_row"] <= set(ex[k]) for k in cuts["identity"])
+        and keys["identity_crossings_row"] <= set(ex[cuts["identity"][1]]),
+        "backend": ex["backend"].startswith("cuda")},
+        ("als", "gj_solve"))
+
+    # 6. the shipped detector with appearance, then tracking
+    ae = script_module("torch_appearance_e2e_study")
+    line, launches, wall = study_call(ae.main,
+                                      ["--frames", str(cuts["appearance_frames"])])
+    ex = line["extra"]
+    report("appearance_e2e", line, launches, wall, {
+        "keys": set(ex) == keys["appearance_e2e"]
+        and all(set(ex[k]) == keys["appearance_e2e_row"]
+                for k in ex if isinstance(ex[k], dict)),
+        "tracks": ex["geometry_only"]["raw_tracks"] > 0},
+        ("als",))
+
+    # 7-8. the detector studies (no TPU kernel on their path)
+    cd = script_module("torch_crowd_detect_study")
+    line, launches, wall = study_call(cd.main,
+                                      ["--frames", str(cuts["crowd_frames"])])
+    ex = line["extra"]
+    report("crowd_detect", line, launches, wall, {
+        "keys": set(ex) == keys["crowd_detect"]
+        and all(set(r) == keys["crowd_detect_row"] for r in ex.values()),
+        "sparse_recall": ex["p4_d1.2"]["recall"] > 0.5}, ())
+    sh = script_module("torch_detector_style_holdout")
+    line, launches, wall = study_call(sh.main,
+                                      ["--seeds", *map(str, cuts["style_seeds"])])
+    ex = line["extra"]
+    report("style_holdout", line, launches, wall, {
+        "keys": set(ex) == keys["style_holdout"]
+        and set(ex["styles"]) == set(sh.STYLES)
+        and set(ex["calibration"]) == {str(t) for t in sh.THRESHOLDS}}, ())
+    if failed:
+        raise AssertionError(f"studies failed their checks or launched no kernel: {failed}")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -3413,6 +3624,7 @@ def main() -> int:
                                    Path(tmp))
         profile_bench_launches = run_phase("profile_bench", phase_profile_bench, torch,
                                            "cuda", Path(tmp))
+        study_launches = run_phase("studies", phase_studies, torch, "cuda", Path(tmp))
     scaled_launches = run_phase("scaled", phase_scaled, torch, "cuda")
     synthetic_launches = run_phase("e2e_synthetic", phase_e2e_synthetic, torch, "cuda")
     fullframe_launches = run_phase("e2e_fullframe", phase_e2e_fullframe, torch, "cuda")
@@ -3428,7 +3640,8 @@ def main() -> int:
              "mesh_spec": mesh_spec_launches, "streams": streams_launches,
              "bench": bench_launches, "stream_curve": curve_launches, **scaled_launches,
              "profile_bench": profile_bench_launches, "e2e_synthetic": synthetic_launches,
-             "e2e_fullframe": fullframe_launches, "bench_detect": bench_detect_launches}
+             "e2e_fullframe": fullframe_launches, "bench_detect": bench_detect_launches,
+             **study_launches}
 
     def row(kernel, replaces, r, library_ms):
         by_path = {p: c[kernel.name] for p, c in paths.items() if c[kernel.name]}

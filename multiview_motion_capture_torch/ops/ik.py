@@ -268,7 +268,7 @@ def _lm_solve_batched(x0: Tensor, skel: Skeleton, obs: Tensor, view_w: Tensor,
                       P: Tensor, free_mask: Tensor, n_iters: int, eps: float,
                       lam0: float, lam_up: float, lam_down: float,
                       ftol: float = 2e-6, xtol: float = 1e-6,
-                      solver: str = "gj") -> Tensor:
+                      solver: str = "gj", return_iters: bool = False):
     """Batched LM over all T slots, every slot's damped normal equations
     solved at once per iteration: by the batched Gauss-Jordan kernel on
     normal equations assembled by two batched products ("gj"), by the fused
@@ -287,7 +287,13 @@ def _lm_solve_batched(x0: Tensor, skel: Skeleton, obs: Tensor, view_w: Tensor,
     frozen (they can never take a "better" step, ik.py:441-449).  Frozen
     slots keep x and lam, so running past the point where every slot froze
     changes nothing: the loop only checks for that on the host once every
-    `LM_SYNC_EVERY` iterations."""
+    `LM_SYNC_EVERY` iterations.
+
+    `return_iters=True` also returns the JAX package's iteration count
+    (ik.py:382-385 there): the iterations at whose start any slot was
+    active, which is what its `lax.while_loop` executes, since a frozen
+    slot never thaws.  The count stays on the device, a () int32 tensor,
+    and the host reads nothing more for it."""
     T, n = x0.shape
     dev, dt, wd = x0.device, x0.dtype, WORK_DTYPE
     eye = torch.eye(n, dtype=wd, device=dev)
@@ -301,9 +307,12 @@ def _lm_solve_batched(x0: Tensor, skel: Skeleton, obs: Tensor, view_w: Tensor,
     r = residual(x0)
     lam = torch.full((T,), lam0, dtype=dt, device=dev)
     active = view_w.sum(dim=1) > 0
+    n_run = torch.zeros((), dtype=torch.int32, device=dev) if return_iters else None
     for it in range(n_iters):
         if it > 0 and it % LM_SYNC_EVERY == 0 and not bool(active.any()):
             break
+        if return_iters:
+            n_run += active.any()
         _, J = _residual_and_jacobian(x.to(wd), skel, obs, view_w, P, eps)
         J = J * free_mask[None, None, :]
         if solver == "gj_fused":
@@ -334,6 +343,8 @@ def _lm_solve_batched(x0: Tensor, skel: Skeleton, obs: Tensor, view_w: Tensor,
         small_step = dx.abs().amax(dim=1) <= xtol * (1.0 + x.abs().amax(dim=1))
         converged = better & (small_gain | small_step)
         active = active & ~converged
+    if return_iters:
+        return x, n_run
     return x
 
 

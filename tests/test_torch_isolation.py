@@ -42,8 +42,8 @@ def test_port_imports_no_jax():
 
 
 def test_benchmark_programs_import_no_jax_and_need_the_card(tmp_path, monkeypatch):
-    """The port's run programs (benchmarks, profilers, examples) import no
-    JAX either; like the package's `bench` mode they run on the card unless
+    """The port's run programs (benchmarks, profilers, examples, the eight
+    studies and the oracle copy they use) import no JAX either; like the package's `bench` mode they run on the card unless
     asked for the CPU, and raise without a GPU once their data is found."""
     root = PKG.parent
     programs = [root / "scripts" / f"{n}.py" for n in (
@@ -88,6 +88,7 @@ def test_benchmark_programs_import_no_jax_and_need_the_card(tmp_path, monkeypatc
         fullframe.main(steps=1, n_frames=1)
     with pytest.raises(RuntimeError, match="device='cuda'"):
         synthetic.main(steps=1, n_frames=1)
+    _check_studies(tmp_path, monkeypatch)
     # with `--cpu` the profilers ask for the CPU
     asked = []
 
@@ -106,6 +107,66 @@ def test_benchmark_programs_import_no_jax_and_need_the_card(tmp_path, monkeypatc
     assert asked == ["cpu", "cpu"]
 
 
+# the research studies' ports, each with the arguments that reach its
+# device (the Shelf-layout studies read `--data_dir`, an existing directory)
+STUDIES = {
+    "torch_bench_quality_bisect": ["--data_dir", "{data}"],
+    "torch_ik_iteration_study": [],
+    "torch_fragmentation_study": ["--data_dir", "{data}"],
+    "torch_oracle_parity_study": ["--data_dir", "{data}", "--out", "{data}/out.json"],
+    "torch_identity_study": [],
+    "torch_appearance_e2e_study": [],
+    "torch_crowd_detect_study": [],
+    "torch_detector_style_holdout": [],
+}
+
+
+def _check_studies(tmp_path, monkeypatch):
+    """The eight studies, the oracle copy they use, its cache and the
+    runner of the studies at their own sizes import no JAX, nothing of the JAX package, no JAX example and not the JAX
+    package's oracle (`tests.oracle_pipeline`); each study raises without a
+    GPU, and `--cpu` asks for the CPU."""
+    root = PKG.parent
+    files = [root / "scripts" / f"{n}.py" for n in STUDIES] + [
+        root / "scripts" / "torch_oracle_cache.py", root / "scripts" / "torch_studies_uncut.py",
+        root / "tests" / "torch_oracle_pipeline.py"]
+    for path in files:
+        bad = [m for m in _imported_modules(path)
+               if m.split(".")[0] in FORBIDDEN + ("examples",)
+               and not m.startswith("examples.torch_") or m == "tests.oracle_pipeline"]
+        assert not bad, (path.name, bad)
+    monkeypatch.syspath_prepend(str(root / "scripts"))
+    monkeypatch.syspath_prepend(str(root))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mods = {n: importlib.import_module(n) for n in STUDIES}
+    argv = {n: [a.format(data=tmp_path) for a in args] for n, args in STUDIES.items()}
+    for name, mod in mods.items():
+        with pytest.raises(RuntimeError, match="device='cuda'"):
+            mod.main(argv[name])
+    # the runner of all eight at their own sizes needs the card too
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        importlib.import_module("torch_studies_uncut").main([])
+    asked = []
+
+    class Asked(Exception):
+        pass
+
+    def record(device="cuda"):
+        asked.append(str(device))
+        raise Asked
+
+    for name, mod in mods.items():
+        monkeypatch.setattr(mod, "resolve_device", record)
+        with pytest.raises(Asked):
+            mod.main(argv[name] + ["--cpu"])
+    assert asked == ["cpu"] * len(STUDIES)
+    # the Shelf-layout studies find no data where none is
+    for name in ("torch_bench_quality_bisect", "torch_fragmentation_study",
+                 "torch_oracle_parity_study"):
+        with pytest.raises(FileNotFoundError, match="missing"):
+            mods[name].main(["--data_dir", str(tmp_path / "missing"), "--cpu"])
+
+
 def _counterpart_of(path: Path):
     """The program a `torch_` program names as its JAX counterpart
     ("counterpart of `examples/...`" in its docstring), or None."""
@@ -115,25 +176,31 @@ def _counterpart_of(path: Path):
 
 
 def test_every_run_program_is_ported_or_queued():
-    """Every program of `examples/` and `scripts/` has a `torch_`
-    counterpart that names it, or is one of the studies ROADMAP.md's last
-    slice still queues (scripts/xla_repros/, TPU compiler repros, and the
-    shell scripts are no programs of the system).  So the queue and the
-    tree cannot drift apart: a study ported stays queued only until its
-    counterpart exists, and a program without one must be queued."""
+    """Every program of `examples/` and `scripts/` has exactly one
+    `torch_` counterpart that names it, or is a study ROADMAP.md's queue A4
+    still holds (scripts/xla_repros/, TPU compiler repros, and the shell
+    scripts are no programs of the system).  So the queue and the tree
+    cannot drift apart: a study ported stays queued only until its
+    counterpart exists, and a program without one must be queued.  Since
+    the eight studies' slice the queue is empty: every program is ported."""
     root = PKG.parent
     programs = {f"{d}/{p.name}" for d in ("examples", "scripts")
                 for p in (root / d).glob("*.py") if not p.name.startswith("torch_")}
-    ported = {_counterpart_of(p) for d in ("examples", "scripts")
-              for p in (root / d).glob("torch_*.py")} - {None}
+    named = [_counterpart_of(p) for d in ("examples", "scripts")
+             for p in (root / d).glob("torch_*.py")]
+    ported = set(named) - {None}
     roadmap = (root / "ROADMAP.md").read_text()
-    section = roadmap[roadmap.index("The last slice: the eight studies"):]
-    section = section[:section.index("\n### ")]
-    queued = set(re.findall(r"`(scripts/\w+\.py)`", section))
-    assert len(programs) > len(queued) > 0
+    queued = set()
+    if "The last slice: the eight studies" in roadmap:
+        section = roadmap[roadmap.index("The last slice: the eight studies"):]
+        section = section[:section.index("\n### ")]
+        queued = set(re.findall(r"`(scripts/\w+\.py)`", section))
+    assert len(programs) >= 17
     assert ported <= programs, ported - programs
+    assert all(named.count(p) == 1 for p in ported), sorted(named, key=str)
     assert not ported & queued, ported & queued
     assert programs == ported | queued, programs - ported - queued
+    assert not queued, queued
 
 
 # the TPU kernels' modules and their counterparts (own wrappers, own names)
