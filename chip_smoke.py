@@ -137,6 +137,11 @@ where it is the slower.  `spd_systems`, `lm_inputs`, `gj_route_systems`,
 `cuda_time_ms` and `device_ms` are shared with
 `scripts/torch_solve_timing.py` and `tests/test_torch_cuda.py`.
 
+The phases run in six groups, each in a worker process of this script on
+the card (`group_*`, GROUPS): `kernels` alone first, then the other five
+side by side; each group prints its wall seconds when it ends, and any
+group that fails, or the run's RUN_BUDGET_S passing, stops them all.
+
 It prints one JSON line per phase with its wall seconds.  The last lines
 are the card's `nvidia-smi` name and power limit, the kernel table and
 `{"ok": true, "device": {...}}`.  Any failure exits non-zero without the
@@ -764,8 +769,11 @@ def check_als(torch, name, W, mask, init, max_iter, stable_iters, plain_rounds=3
               stable_iters=stable_iters)
     k = als_kernel.match_als(W, mask, init, **kw)
     kx = als_kernel.match_als(W, mask, init, return_x=True, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     p = association.match_als(W, mask, init, **kw)
     torch.cuda.synchronize()
+    plain_once_ms = (time.perf_counter() - t0) * 1e3
     xk, xp = k.x_bin.cpu().numpy(), p.x_bin.cpu().numpy()
     ik, ip = int(k.n_iters), int(p.n_iters)
     res = {"case": name, "n": n, "rank": rank, "iters_kernel": ik, "iters_plain": ip,
@@ -779,8 +787,10 @@ def check_als(torch, name, W, mask, init, max_iter, stable_iters, plain_rounds=3
     res["ms_with_x"] = cuda_time_ms(
         lambda: als_kernel.match_als(W, mask, init, return_x=True, **kw), reps=20)
     res.update(als_launch_fields(n, rank, 1, res["ms"], ik))
-    res["plain_ms"] = host_time_ms(lambda: association.match_als(W, mask, init, **kw),
-                                   rounds=plain_rounds, warm=False)
+    # one round: the time of the call compared above (a plain call at N =
+    # 66 takes ~1.5 s)
+    res["plain_ms"] = plain_once_ms if plain_rounds == 1 else host_time_ms(
+        lambda: association.match_als(W, mask, init, **kw), rounds=plain_rounds, warm=False)
     # W f32 and the mask bytes read, init_A read, x_bin bytes and iters written
     n_bytes = n * n * 4 + n * n + n * rank * 4 + n * n + 4
     res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, als_ops(n, rank, ik))
@@ -934,7 +944,12 @@ def check_als_batched(torch, name, W, mask, init, max_iter, stable_iters, timing
 
     k = als_kernel.match_als_batched(W, mask, init, **kw)
     kx = als_kernel.match_als_batched(W, mask, init, return_x=True, **kw)
-    p, s1 = plain(), solos()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    s1 = solos()
     torch.cuda.synchronize()
     xk = k.x_bin.cpu().numpy()
     xp = np.stack([r.x_bin.cpu().numpy() for r in p])
@@ -958,7 +973,8 @@ def check_als_batched(torch, name, W, mask, init, max_iter, stable_iters, timing
         lambda: als_kernel.match_als_batched(W, mask, init, return_x=True, **kw),
         reps=timing_reps, rounds=3)
     res.update(als_launch_fields(n, rank, C, res["ms"], max(ik)))
-    res["plain_ms"] = host_time_ms(plain, rounds=1, warm=False)
+    # the plain solves compared above, timed once (7 s at C 4, N 336)
+    res["plain_ms"] = plain_ms
     # yardstick: the C problems as C sequential single-problem launches
     res["yardstick"] = "C sequential B1 launches"
     res["yardstick_ms"] = cuda_time_ms(solos, reps=timing_reps, rounds=3)
@@ -3101,6 +3117,15 @@ def phase_mesh_train(torch, dev):
         raise AssertionError("the dp x tp step is off the unsharded step")
 
 
+def write_bench_files(seq, root: Path) -> None:
+    """The slice's scene, all SCENE frames, as files in the Shelf dataset's
+    layout (`kps_opn/`, `calibs/` with the ring's float64 values)."""
+    from multiview_motion_capture_torch.cameras import camera_ring_k_rt
+
+    write_scene_files(seq, root, SCENE["n_frames"], kps_dir="kps_opn",
+                      calib=camera_ring_k_rt(SCENE["n_views"])[:2])
+
+
 def phase_bench(torch, dev, seq, slice_res, root: Path):
     """The CLI's `bench` mode on the slice's scene: its SCENE frames written
     under `root` in the Shelf dataset's layout, `bench.measure` on them
@@ -3116,11 +3141,10 @@ def phase_bench(torch, dev, seq, slice_res, root: Path):
     from multiview_motion_capture_torch import __main__ as cli
     from multiview_motion_capture_torch import bench
 
-    from multiview_motion_capture_torch.cameras import CameraBank, camera_ring_k_rt
+    from multiview_motion_capture_torch.cameras import CameraBank
 
     n = SCENE["n_frames"]
-    write_scene_files(seq, root, n, kps_dir="kps_opn",
-                      calib=camera_ring_k_rt(SCENE["n_views"])[:2])
+    write_bench_files(seq, root)
     cams = CameraBank.from_json_dir(root / "calibs")
     cams_equal = all(torch.equal(getattr(cams, f), getattr(seq.cameras, f))
                      for f in ("K", "Rt", "P", "Kr_inv", "cam_loc", "img_wh"))
@@ -3226,7 +3250,7 @@ def phase_scaled(torch, dev):
             parity_frames=F, parity=parity)
         emit({"phase": "scaled", "config": name, **rows[name]})
         if name == SCALED_PROFILE[0]:
-            phase_profile(torch, dev, seq, cfg, SCALED_PROFILE[1], "scaled_profile", 12, False)
+            profiled = seq, cfg
         batched = clusters > 1
         if not (launches["als_batched" if batched else "als"] > 0
                 and launches["als" if batched else "als_batched"] == 0
@@ -3238,6 +3262,8 @@ def phase_scaled(torch, dev):
                 and parity["max_pose_diff_m"] <= POSE_TOL_M
                 and parity["card_equals_bench_run"]):
             raise AssertionError(f"{name}: card and CPU runs disagree")
+    # after the rigs: a process runs its host code slower once it has traced
+    phase_profile(torch, dev, *profiled, SCALED_PROFILE[1], "scaled_profile", 12, False)
     emit({"phase": "scaled", "summary": {
         n: {"fps_assoc_tri": v["assoc_tri"]["fps"], "fps_full_ik": v["full_ik"]["fps"],
             "n_tracklets": v["full_ik"]["n_tracklets"], "n_long": v["full_ik"]["n_long"],
@@ -3541,9 +3567,232 @@ def phase_studies(torch, dev, root: Path):
     return by_path
 
 
+def slice_scene():
+    import dataclasses as dc
+
+    from multiview_motion_capture_torch.config import SHELF_BENCH
+    from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
+
+    cfg = dc.replace(SHELF_BENCH, max_frames=None)
+    return synthetic_sequence(cfg=cfg, **SCENE), cfg
+
+
+def default_scene():
+    from multiview_motion_capture_torch.config import PipelineConfig
+    from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
+
+    dcfg = PipelineConfig(**DEFAULT_CFG)
+    return synthetic_sequence(cfg=dcfg, **SCENE), dcfg
+
+
+def appearance_scene():
+    from multiview_motion_capture_torch.config import PipelineConfig
+    from multiview_motion_capture_torch.data.synthetic import (
+        synthetic_appearance,
+        synthetic_sequence,
+    )
+
+    acfg = PipelineConfig(**APPEARANCE_CFG)
+    aseq = synthetic_sequence(cfg=acfg, **APPEARANCE_SCENE)
+    return aseq, acfg, synthetic_appearance(aseq, **APPEARANCE_EMBED)
+
+
+# The phases run in groups, each group in a worker process of this script
+# (`--group NAME DIR`) on the card: `kernels` alone first, so that the
+# kernel table's times are the card's alone, then the other groups side by
+# side (each path is host-bound: one core drives it and the card idles
+# most of the time).  A group keeps the phases that share a scene or a
+# result.  The phases that trace with torch.profiler come last in their
+# group: a process that has traced runs its host code slower after.  Each
+# group returns its paths' launch counts (and `kernels` its checks) through
+# DIR/NAME.json.
+def group_kernels(torch, dev, tmp: Path) -> dict:
+    seq, cfg = slice_scene()
+    dseq, dcfg = default_scene()
+    aseq, acfg, app = appearance_scene()
+    checks = run_phase("kernels", phase_kernels, torch, dev, seq, cfg, dseq, dcfg,
+                       aseq, acfg, app)
+    return {"checks": checks, "paths": {}}
+
+
+def group_slice(torch, dev, tmp: Path) -> dict:
+    """SHELF_BENCH on the slice's scene: the slice, its card-vs-CPU check,
+    the mesh-spec route and the benchmark programs on its files."""
+    seq, cfg = slice_scene()
+    paths = {}
+    paths["slice"], slice_res = run_phase("slice", phase_slice, torch, dev, seq, cfg)
+    run_phase("parity", phase_parity, torch, dev, seq, cfg)
+    paths["mesh_spec"] = run_phase("mesh_spec", phase_mesh_spec, torch, dev, seq, cfg,
+                                   slice_res)
+    root = tmp / "slice_files"
+    paths["bench"] = run_phase("bench", phase_bench, torch, dev, seq, slice_res, root)
+    paths["stream_curve"] = run_phase("stream_curve", phase_stream_curve, torch, dev, root)
+    paths["profile_bench"] = run_phase("profile_bench", phase_profile_bench, torch, dev, root)
+    run_phase("profile", phase_profile, torch, dev, seq, cfg, SLICE_PROFILE_FRAMES)
+    return {"paths": paths}
+
+
+def group_default(torch, dev, tmp: Path) -> dict:
+    """The default preset on the slice's scene (IK, triangulation, the
+    streaming tracker, the CLI, the alternative matchers), then the
+    detector's training phases."""
+    dseq, dcfg = default_scene()
+    paths = {}
+    paths["default"] = run_phase("default", phase_default, torch, dev, dseq, dcfg)
+    run_phase("default_parity", phase_parity, torch, dev, dseq, dcfg,
+              DEFAULT_PARITY_FRAMES, "default_parity")
+    paths["no_ik"] = run_phase("no_ik", phase_no_ik, torch, dev, dseq, dcfg)
+    paths["stream"] = run_phase("stream", phase_stream, torch, dev, dseq,
+                                dataclasses.replace(dcfg, motion_gain=1.0))
+    paths["cli"] = run_phase("cli", phase_cli, torch, dev, dseq)
+    run_phase("alt", phase_alt, torch, dev, dseq, dcfg)
+    run_phase("train_parity", phase_train_parity, torch, dev)
+    run_phase("appearance_train", phase_appearance_train, torch, dev)
+    run_phase("train", phase_train, torch, dev)
+    run_phase("default_profile", phase_profile, torch, dev, dseq, dcfg,
+              DEFAULT_PROFILE_FRAMES, "default_profile", 12, False)
+    return {"paths": paths}
+
+
+def group_appearance(torch, dev, tmp: Path) -> dict:
+    """Appearance, identity and checkpoints on the identity study's scene,
+    the config-5 examples and bench_detect, then the detect path."""
+    aseq, acfg, app = appearance_scene()
+    paths = {}
+    paths["appearance"], app_tracklets = run_phase("appearance", phase_appearance, torch,
+                                                   dev, aseq, acfg, app)
+    run_phase("appearance_parity", phase_parity, torch, dev, aseq, acfg,
+              APPEARANCE_PARITY_FRAMES, "appearance_parity", app)
+    final = run_phase("identity", phase_identity, aseq, app_tracklets)
+    paths["checkpoint"] = run_phase("checkpoint", phase_checkpoint, torch, dev, aseq, acfg,
+                                    app, final)
+    paths["e2e_synthetic"] = run_phase("e2e_synthetic", phase_e2e_synthetic, torch, dev)
+    paths["e2e_fullframe"] = run_phase("e2e_fullframe", phase_e2e_fullframe, torch, dev)
+    paths["bench_detect"] = run_phase("bench_detect", phase_bench_detect, torch, dev)
+    paths["detect"], frames = run_phase("detect", phase_detect, torch, dev)
+    run_phase("detect_parity", phase_detect_parity, torch, dev, frames)
+    run_phase("cascade", phase_cascade, torch, dev, frames)
+    paths["detect_cli"] = run_phase("detect_cli", phase_detect_cli, torch, dev, frames)
+    return {"paths": paths}
+
+
+def group_wide(torch, dev, tmp: Path) -> dict:
+    """The 64-camera rig (B3, B2, B4), the multi-device paths and the
+    clustered association dump."""
+    from multiview_motion_capture_torch.config import PipelineConfig
+    from multiview_motion_capture_torch.data.synthetic import synthetic_sequence
+
+    wcfg = PipelineConfig.wide(WIDE_SCENE["n_views"], max_frames=None)
+    wseq = synthetic_sequence(cfg=wcfg, **WIDE_SCENE)
+    paths = {}
+    paths["wide"], wide_res, wide_run = run_phase("wide", phase_wide, torch, dev, wseq, wcfg)
+    paths["wide_fused"] = run_phase("wide_fused", phase_wide_fused, torch, dev, wseq, wcfg,
+                                    wide_res)
+    run_phase("wide_parity", phase_parity, torch, dev, wseq, wcfg, WIDE_PARITY_FRAMES,
+              "wide_parity")
+    paths["mesh_wide"], paths["mesh_wide_fused"] = run_phase(
+        "mesh_wide", phase_mesh_wide, torch, dev, wseq, wcfg, wide_res, wide_run)
+    paths["mesh_cameras"] = run_phase("mesh_cameras", phase_mesh_cameras, torch, dev)
+    paths["streams"] = run_phase("streams", phase_streams, torch, dev)
+    run_phase("mesh_train", phase_mesh_train, torch, dev)
+    paths["debug_clustered"] = run_phase("debug_clustered", phase_debug_clustered, torch, dev)
+    run_phase("wide_profile", phase_profile, torch, dev, wseq, wcfg, WIDE_PROFILE_FRAMES,
+              "wide_profile")
+    return {"paths": paths}
+
+
+def group_studies(torch, dev, tmp: Path) -> dict:
+    """The research studies on the slice's scene files, then the scaled
+    benchmark's rigs."""
+    seq, _ = slice_scene()
+    root = tmp / "study_files"
+    write_bench_files(seq, root)
+    paths = dict(run_phase("studies", phase_studies, torch, dev, root))
+    paths.update(run_phase("scaled", phase_scaled, torch, dev))
+    return {"paths": paths}
+
+
+GROUPS = {"kernels": group_kernels, "slice": group_slice, "default": group_default,
+          "appearance": group_appearance, "wide": group_wide, "studies": group_studies}
+# the groups that run side by side once `kernels` has run alone
+SIDE_BY_SIDE = ("slice", "default", "appearance", "wide", "studies")
+# the whole run's wall-clock budget: the workers still running then are
+# stopped and the run fails
+RUN_BUDGET_S = 1140.0
+
+
+def worker(name: str, tmp: Path) -> int:
+    """Run one group of phases on the card; its result goes to tmp/name.json."""
+    import torch
+
+    from multiview_motion_capture_torch.utils.precision import high_precision
+
+    high_precision()
+    out = GROUPS[name](torch, "cuda", tmp)
+    (tmp / f"{name}.json").write_text(json.dumps(out))
+    return 0
+
+
+def run_groups(names, tmp: Path, deadline: float) -> dict:
+    """Start one worker process per group, relay their output lines as they
+    come, and wait for all of them.  A worker that fails, or the run's
+    deadline passing, stops every worker (and what each started) and
+    fails."""
+    import os
+    import signal
+    import threading
+
+    lock = threading.Lock()
+
+    def relay(src, dst):
+        for line in src:
+            with lock:
+                dst.write(line)
+                dst.flush()
+
+    procs, relays, started = {}, [], {}
+    try:
+        for name in names:
+            p = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--group", name, str(tmp)],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                start_new_session=True)
+            procs[name], started[name] = p, time.perf_counter()
+            for src, dst in ((p.stdout, sys.stdout), (p.stderr, sys.stderr)):
+                t = threading.Thread(target=relay, args=(src, dst), daemon=True)
+                t.start()
+                relays.append(t)
+        pending = dict(procs)
+        while pending:
+            for name, p in list(pending.items()):
+                code = p.poll()
+                if code is None:
+                    continue
+                del pending[name]
+                with lock:
+                    emit({"phase": "group", "group": name, "exit_code": code,
+                          "wall_s": time.perf_counter() - started[name]})
+                if code != 0:
+                    raise RuntimeError(f"group {name} failed with exit code {code}")
+            if pending and time.perf_counter() > deadline:
+                raise TimeoutError(f"groups {sorted(pending)} still running at the "
+                                   f"run's {RUN_BUDGET_S:.0f} s budget")
+            time.sleep(0.5)
+        for t in relays:
+            t.join(timeout=10)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    return {name: json.loads((tmp / f"{name}.json").read_text()) for name in names}
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -3553,95 +3802,20 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from multiview_motion_capture_torch.config import SHELF_BENCH, PipelineConfig
-    from multiview_motion_capture_torch.data.synthetic import (
-        synthetic_appearance,
-        synthetic_sequence,
-    )
+    if sys.argv[1:2] == ["--group"]:
+        return worker(sys.argv[2], Path(sys.argv[3]))
     from multiview_motion_capture_torch.ops import cuda_lib
 
     smi_line = phase_env(torch)
     run_phase("build", phase_build)
-    cfg = dataclasses.replace(SHELF_BENCH, max_frames=None)
-    seq = synthetic_sequence(cfg=cfg, **SCENE)
-    dcfg = PipelineConfig(**DEFAULT_CFG)
-    dseq = synthetic_sequence(cfg=dcfg, **SCENE)
-    acfg = PipelineConfig(**APPEARANCE_CFG)
-    aseq = synthetic_sequence(cfg=acfg, **APPEARANCE_SCENE)
-    app = synthetic_appearance(aseq, **APPEARANCE_EMBED)
-    checks = run_phase("kernels", phase_kernels, torch, "cuda", seq, cfg, dseq, dcfg,
-                       aseq, acfg, app)
-    slice_launches, slice_res = run_phase("slice", phase_slice, torch, "cuda", seq, cfg)
-    run_phase("parity", phase_parity, torch, "cuda", seq, cfg)
-    run_phase("profile", phase_profile, torch, "cuda", seq, cfg, SLICE_PROFILE_FRAMES)
-
-    default_launches = run_phase("default", phase_default, torch, "cuda", dseq, dcfg)
-    run_phase("default_parity", phase_parity, torch, "cuda", dseq, dcfg,
-              DEFAULT_PARITY_FRAMES, "default_parity")
-    run_phase("default_profile", phase_profile, torch, "cuda", dseq, dcfg,
-              DEFAULT_PROFILE_FRAMES, "default_profile", 12, False)
-    no_ik_launches = run_phase("no_ik", phase_no_ik, torch, "cuda", dseq, dcfg)
-    stream_launches = run_phase("stream", phase_stream, torch, "cuda", dseq,
-                                dataclasses.replace(dcfg, motion_gain=1.0))
-    app_launches, app_tracklets = run_phase("appearance", phase_appearance, torch, "cuda",
-                                            aseq, acfg, app)
-    run_phase("appearance_parity", phase_parity, torch, "cuda", aseq, acfg,
-              APPEARANCE_PARITY_FRAMES, "appearance_parity", app)
-    final = run_phase("identity", phase_identity, aseq, app_tracklets)
-    checkpoint_launches = run_phase("checkpoint", phase_checkpoint, torch, "cuda", aseq, acfg,
-                                    app, final)
-    detect_launches, frames = run_phase("detect", phase_detect, torch, "cuda")
-    run_phase("detect_parity", phase_detect_parity, torch, "cuda", frames)
-    run_phase("cascade", phase_cascade, torch, "cuda", frames)
-    run_phase("train_parity", phase_train_parity, torch, "cuda")
-    run_phase("train", phase_train, torch, "cuda")
-    run_phase("appearance_train", phase_appearance_train, torch, "cuda")
-    cli_launches = run_phase("cli", phase_cli, torch, "cuda", dseq)
-    detect_cli_launches = run_phase("detect_cli", phase_detect_cli, torch, "cuda", frames)
-    debug_launches = run_phase("debug_clustered", phase_debug_clustered, torch, "cuda")
-    run_phase("alt", phase_alt, torch, "cuda", dseq, dcfg)
-
-    wcfg = PipelineConfig.wide(WIDE_SCENE["n_views"], max_frames=None)
-    wseq = synthetic_sequence(cfg=wcfg, **WIDE_SCENE)
-    wide_launches, wide_res, wide_run = run_phase("wide", phase_wide, torch, "cuda", wseq, wcfg)
-    fused_launches = run_phase("wide_fused", phase_wide_fused, torch, "cuda", wseq, wcfg,
-                               wide_res)
-    run_phase("wide_parity", phase_parity, torch, "cuda", wseq, wcfg, WIDE_PARITY_FRAMES,
-              "wide_parity")
-    run_phase("wide_profile", phase_profile, torch, "cuda", wseq, wcfg, WIDE_PROFILE_FRAMES,
-              "wide_profile")
-    mesh_wide_launches, mesh_fused_launches = run_phase("mesh_wide", phase_mesh_wide, torch,
-                                                        "cuda", wseq, wcfg, wide_res, wide_run)
-    mesh_cameras_launches = run_phase("mesh_cameras", phase_mesh_cameras, torch, "cuda")
-    mesh_spec_launches = run_phase("mesh_spec", phase_mesh_spec, torch, "cuda", seq, cfg,
-                                   slice_res)
-    streams_launches = run_phase("streams", phase_streams, torch, "cuda")
-    run_phase("mesh_train", phase_mesh_train, torch, "cuda")
+    deadline = t_start + RUN_BUDGET_S
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
-        bench_launches = run_phase("bench", phase_bench, torch, "cuda", seq, slice_res,
-                                   Path(tmp))
-        curve_launches = run_phase("stream_curve", phase_stream_curve, torch, "cuda",
-                                   Path(tmp))
-        profile_bench_launches = run_phase("profile_bench", phase_profile_bench, torch,
-                                           "cuda", Path(tmp))
-        study_launches = run_phase("studies", phase_studies, torch, "cuda", Path(tmp))
-    scaled_launches = run_phase("scaled", phase_scaled, torch, "cuda")
-    synthetic_launches = run_phase("e2e_synthetic", phase_e2e_synthetic, torch, "cuda")
-    fullframe_launches = run_phase("e2e_fullframe", phase_e2e_fullframe, torch, "cuda")
-    bench_detect_launches = run_phase("bench_detect", phase_bench_detect, torch, "cuda")
-
-    paths = {"slice": slice_launches, "default": default_launches, "no_ik": no_ik_launches,
-             "stream": stream_launches, "appearance": app_launches,
-             "checkpoint": checkpoint_launches, "detect": detect_launches,
-             "cli": cli_launches, "detect_cli": detect_cli_launches,
-             "debug_clustered": debug_launches, "wide": wide_launches,
-             "wide_fused": fused_launches, "mesh_wide": mesh_wide_launches,
-             "mesh_wide_fused": mesh_fused_launches, "mesh_cameras": mesh_cameras_launches,
-             "mesh_spec": mesh_spec_launches, "streams": streams_launches,
-             "bench": bench_launches, "stream_curve": curve_launches, **scaled_launches,
-             "profile_bench": profile_bench_launches, "e2e_synthetic": synthetic_launches,
-             "e2e_fullframe": fullframe_launches, "bench_detect": bench_detect_launches,
-             **study_launches}
+        results = run_groups(["kernels"], Path(tmp), deadline)
+        results.update(run_groups(SIDE_BY_SIDE, Path(tmp), deadline))
+    checks = results["kernels"]["checks"]
+    paths = {}
+    for name in SIDE_BY_SIDE:
+        paths.update(results[name]["paths"])
 
     def row(kernel, replaces, r, library_ms):
         by_path = {p: c[kernel.name] for p, c in paths.items() if c[kernel.name]}
@@ -3692,6 +3866,7 @@ def main() -> int:
         row(cuda_lib.GJ_SOLVE_GRID, tpu + "solve_pallas.py:29", checks["gj_solve_grid"],
             checks["gj_solve_grid"]["library_ms"]),
     ]}
+    emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     print(smi_line, flush=True)
     emit(table)
     emit({"ok": True, "device": {"platform": "gpu",

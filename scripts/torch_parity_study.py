@@ -5,6 +5,8 @@
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study wide [--frames 60] \
         [--solver gj_fused]
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study rig128 [--frames 8]
+    JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study clustered_appearance \
+        [--frames 30] [--draws 4]
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study bench [--frames 12] [--draws 4]
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study cold [--draws 2]
     JAX_PLATFORMS=cpu python scripts/torch_parity_study.py --study default [--frames 300]
@@ -73,6 +75,23 @@ tracklets, reprojection and per-frame ALS iterations) and
 "rig128_sequence" (the port's on the CPU, the first frame whose decisions
 differ, both ALS iteration counts there and each cluster's ALS problem at
 that frame from the JAX run's state, as "wide_stepwise" prints them).
+
+`--study clustered_appearance` runs the clustered association with
+appearance: tests/test_torch_appearance.py's clustered rig at 10 views in 3
+interleaved clusters (synthetic_sequence(`--frames` frames, 3 people, seed
+2), ALS cap 100, `synthetic_appearance(dim=8, noise=0.05,
+shared_frac=0.83)` with the auto gain at 8 px; the JAX side on its XLA
+ALS), the filter and one `run_offline` in each package, and prints
+"clustered_appearance_reference" (JAX's tracklets, reprojection and
+per-frame ALS iterations, summed over the clusters) and
+"clustered_appearance_sequence" (the port's, the first frame whose
+decisions differ, the largest pose difference before it, and that frame's
+clusters from the JAX run's state: each cluster's ALS iterations and
+whether it ran into the cap, in both packages; the entries that binarize
+otherwise with |X - 0.5| in each and the reach of JAX's own X there under
+the port's W and `--draws` one-ulp draws of JAX's W; whether each split
+is such a tie; the smallest margins; and whether the port's ALS on JAX's
+own W gives JAX's grouping).
 
 `--study bench` runs tests/test_torch_bench.py's scene
 (synthetic_sequence(`--frames` frames, 3 people, 5 views), written in the
@@ -273,6 +292,17 @@ def same_group(reps: list) -> np.ndarray:
     return (r[:, None] == r[None, :]) & (r[:, None] >= 0) & ~np.eye(len(r), dtype=bool)
 
 
+def ulp_draw(W: np.ndarray, rng) -> np.ndarray:
+    """W (f32) moved one unit in the last place up or down at a tenth of its
+    nonzero entries, kept symmetric."""
+    step = np.where(rng.rand(*W.shape) < 0.1, rng.choice([-1, 1], W.shape), 0)
+    step = np.triu(step, 1)
+    step = step + step.T
+    out = np.where(step > 0, np.nextafter(W, np.float32(2)),
+                   np.where(step < 0, np.nextafter(W, np.float32(-1)), W))
+    return np.where(W == 0, W, out).astype(np.float32)
+
+
 def frame0_study(jctx, tctx, jb, tb, cfg, draws: int, gt_slot_person) -> None:
     kw = dict(alpha=cfg.als_alpha, beta=cfg.als_beta, mu0=cfg.als_mu, tol=cfg.als_tol,
               max_iter=cfg.als_max_iter, stable_iters=cfg.als_stable_iters)
@@ -323,13 +353,7 @@ def frame0_study(jctx, tctx, jb, tb, cfg, draws: int, gt_slot_person) -> None:
     rng = np.random.RandomState(0)
     hits = {"jax_xla_f32": 0, "port_f32": 0}
     for _ in range(draws):
-        # one ulp up or down at a tenth of the nonzero entries, kept symmetric
-        step = np.where(rng.rand(*Wt.shape) < 0.1, rng.choice([-1, 1], Wt.shape), 0)
-        step = np.triu(step, 1)
-        step = step + step.T
-        W = np.where(step > 0, np.nextafter(Wt, np.float32(2)),
-                     np.where(step < 0, np.nextafter(Wt, np.float32(-1)), Wt))
-        W = np.where(Wt == 0, Wt, W).astype(np.float32)
+        W = ulp_draw(Wt, rng)
         for name, solve in (("jax_xla_f32", jax_xla), ("port_f32", port)):
             hits[name] += bool(np.array_equal(same_group(grouping(solve(W)[0], ev)), gt_same))
     out["perturbed_draws"] = draws
@@ -432,45 +456,134 @@ def _carry(jstate):
 def _cluster_margins(jctx, tctx, jstate, kps, valid, cfg) -> list:
     """Each cluster's ALS problem at one frame, from the same state: the JAX
     `match_als` (f32) and the port's plain version on each package's own W."""
-    tstate = _carry(jstate)
-    alive = bool(np.asarray(jstate.active).max() > 0)
-    out = []
-    for c, cl in enumerate(tctx.clusters):
-        views = cl.views.numpy()
-        vv = None if cl.view_valid is None else cl.view_valid.numpy()
-        jk, jv = jnp.asarray(kps), jnp.asarray(valid)
-        tk, tv = torch.as_tensor(kps), torch.as_tensor(valid)
-        if alive:
-            Wj, evj, _ = j_tracker._spatial_time_similarity(jctx, jstate, jk, jv, view_idx=views,
-                                                           view_valid=vv)
-            Wt, _, _ = t_tracker._spatial_time_similarity(tctx, tstate, tk, tv, view_idx=cl.views,
-                                                         view_valid=cl.view_valid)
-        else:
-            Wj, evj = j_tracker._spatial_similarity(jctx, jk, jv, view_idx=views, view_valid=vv)
-            Wt, _ = t_tracker._spatial_similarity(tctx, tk, tv, view_idx=cl.views,
-                                                 view_valid=cl.view_valid)
-        out.append({"cluster": c, **_als_margins(Wj, Wt, evj, jctx.cluster_diag_mask,
-                                                 jctx.cluster_init_A, _als_kw(cfg))})
-    return out
+    jws = _cluster_ws(jctx, jstate, jnp.asarray(kps), jnp.asarray(valid), None, tctx.clusters,
+                      j_tracker)
+    tws = _cluster_ws(tctx, _carry(jstate), torch.as_tensor(kps), torch.as_tensor(valid), None,
+                      tctx.clusters, t_tracker)
+    return [{"cluster": c, **_als_margins(Wj, Wt, evj, jctx.cluster_diag_mask,
+                                          jctx.cluster_init_A, _als_kw(cfg))}
+            for c, ((Wj, evj), (Wt, _)) in enumerate(zip(jws, tws))]
+
+
+def frame_ws(ctx, state, kps, valid, pkg, app=None):
+    """A frame's one ALS input W (`assoc_clusters=1`) as `pkg`'s association
+    forms it from `state`: spatial-time with a live track, else spatial,
+    with the appearance terms and the auto gain when `app` is given; and
+    the elements' validity, in `pkg`'s arrays."""
+    as_array = jnp.asarray if pkg is j_tracker else torch.as_tensor
+    kps, valid = as_array(kps), as_array(valid)
+    app = None if app is None else as_array(app)
+    if np.asarray(state.active).max() > 0:
+        W, ev, _ = pkg._spatial_time_similarity(ctx, state, kps, valid, app=app)
+        return W, ev
+    gain = None if app is None else pkg._appearance_gain(ctx.cfg, state)
+    return pkg._spatial_similarity(ctx, kps, valid, app=app, app_gain=gain)
 
 
 def _single_margins(jctx, tctx, jstate, kps, valid, cfg, app=None) -> dict:
     """The one ALS problem of a frame (`assoc_clusters=1`), from the same
     state, with the frame's embeddings when appearance is on."""
+    Wj, evj = frame_ws(jctx, jstate, kps, valid, j_tracker, app)
+    Wt, _ = frame_ws(tctx, _carry(jstate), kps, valid, t_tracker, app)
+    return _als_margins(Wj, Wt, evj, jctx.diag_mask, jctx.init_A, _als_kw(cfg))
+
+
+def als_split(Wj, Wt, ev, mask, init, kw: dict, nudged=()) -> dict:
+    """One ALS problem on which the packages part: the JAX `match_als`
+    (f32) on JAX's W against the port's plain version on the port's W.
+
+    For each entry the two binarize otherwise ("flips"): X and |X - 0.5|
+    (the margin) in both packages, and the reach of JAX's own X there: how
+    far it moves when JAX's input moves by the measured difference between
+    the packages' inputs (`nudged`: the W JAX forms from each input so
+    moved).  The split is a tie that rounding decides (`near_tie`) when
+    that reach carries JAX's X across 0.5 at the flip with the smallest
+    JAX margin: `tie_margin` <= `tie_bound`.  Also whether the port's plain
+    version on JAX's own W gives JAX's grouping."""
+    ev = np.array(ev)
+    Wj = np.array(Wj, np.float32)
+    Wt = np.array(Wt.numpy() if torch.is_tensor(Wt) else Wt, np.float32)
+    m, a = jnp.asarray(mask), jnp.asarray(init)
+    solve = jax.jit(lambda W: j_assoc.match_als(W, m, a, **kw))
+    rj = solve(jnp.asarray(Wj))
+    xj, bj = np.asarray(rj.x), np.array(rj.x_bin)
+
+    def port(W):
+        return t_assoc.match_als(torch.as_tensor(W), torch.as_tensor(np.array(mask)),
+                                 torch.as_tensor(np.array(init)), **kw)
+
+    rt, rtj = port(Wt), port(Wj)
+    xt, bt = rt.x.numpy(), rt.x_bin.numpy()
+    valid2 = ev[:, None] & ev[None, :] & ~np.eye(len(ev), dtype=bool)
+    flips = np.argwhere(np.triu((bj != bt) & valid2))
+    reach = np.zeros_like(xj)
+    for W in nudged:
+        reach = np.maximum(reach, np.abs(np.asarray(solve(jnp.asarray(W, jnp.float32)).x) - xj))
+    entries = [{"i": int(i), "j": int(j), "x_jax": float(xj[i, j]), "x_port": float(xt[i, j]),
+                "margin_jax": float(abs(xj[i, j] - 0.5)),
+                "margin_port": float(abs(xt[i, j] - 0.5)),
+                "reach_jax": float(reach[i, j])} for i, j in flips]
+    tie = min(entries, key=lambda e: e["margin_jax"], default=None)
+    same = np.array_equal(same_group(grouping(bj, ev)), same_group(grouping(rtj.x_bin.numpy(),
+                                                                             ev)))
+    return {"w_max_abs_diff": float(np.abs(Wj - Wt).max()),
+            "iters_jax": int(rj.n_iters), "iters_port": int(rt.n_iters),
+            "at_cap_jax": int(rj.n_iters) >= kw["max_iter"],
+            "at_cap_port": int(rt.n_iters) >= kw["max_iter"],
+            "x_bin_entries_differing": len(entries), "flips": entries,
+            "min_margin_jax": float(np.abs(xj - 0.5)[valid2].min()),
+            "min_margin_port": float(np.abs(xt - 0.5)[valid2].min()),
+            "nudges": len(nudged),
+            "tie_margin": None if tie is None else tie["margin_jax"],
+            "tie_bound": None if tie is None else tie["reach_jax"],
+            "near_tie": tie is not None and tie["margin_jax"] <= tie["reach_jax"],
+            "port_on_jax_w_iters": int(rtj.n_iters),
+            "port_on_jax_w_gives_jax_grouping": bool(same)}
+
+
+def _cluster_ws(ctx, state, kps, valid, app, clusters, pkg):
+    """Each cluster's ALS input W as `pkg`'s `_clustered_association`
+    forms it (spatial-time with a live track, else spatial, with the
+    appearance terms and the auto gain when `app` is given), and the
+    elements' validity; `clusters` are the port context's."""
+    cfg = ctx.cfg
+    alive = bool(np.asarray(state.active).max() > 0)
+    out = []
+    for cl in clusters:
+        views, vvalid = cl.views, cl.view_valid
+        if pkg is j_tracker:
+            views, vvalid = views.numpy(), None if vvalid is None else vvalid.numpy()
+        if alive:
+            W, ev, _ = pkg._spatial_time_similarity(ctx, state, kps, valid, view_idx=views,
+                                                    app=app, view_valid=vvalid)
+        else:
+            gain = None if app is None else pkg._appearance_gain(cfg, state)
+            W, ev = pkg._spatial_similarity(ctx, kps, valid, view_idx=views, app=app,
+                                            app_gain=gain, view_valid=vvalid)
+        out.append((W, ev))
+    return out
+
+
+def cluster_splits(jctx, tctx, jstate, kps, valid, app=None, draws: int = 4) -> list:
+    """`als_split` for each camera cluster's ALS problem at one frame, from
+    the JAX run's state, both packages on the same detections (and
+    embeddings).  The inputs differ by the rounding of W alone, so the
+    nudges are the port's W itself and `draws` one-ulp draws of JAX's."""
     tstate = _carry(jstate)
-    jk, jv, tk, tv = jnp.asarray(kps), jnp.asarray(valid), torch.as_tensor(kps), \
-        torch.as_tensor(valid)
     ja = None if app is None else jnp.asarray(app)
     ta = None if app is None else torch.as_tensor(app)
-    if np.asarray(jstate.active).max() > 0:
-        Wj, evj, _ = j_tracker._spatial_time_similarity(jctx, jstate, jk, jv, app=ja)
-        Wt, _, _ = t_tracker._spatial_time_similarity(tctx, tstate, tk, tv, app=ta)
-    else:
-        Wj, evj = j_tracker._spatial_similarity(
-            jctx, jk, jv, app=ja, app_gain=j_tracker._appearance_gain(cfg, jstate))
-        Wt, _ = t_tracker._spatial_similarity(
-            tctx, tk, tv, app=ta, app_gain=t_tracker._appearance_gain(tctx.cfg, tstate))
-    return _als_margins(Wj, Wt, evj, jctx.diag_mask, jctx.init_A, _als_kw(cfg))
+    jws = _cluster_ws(jctx, jstate, jnp.asarray(kps), jnp.asarray(valid), ja, tctx.clusters,
+                      j_tracker)
+    tws = _cluster_ws(tctx, tstate, torch.as_tensor(kps), torch.as_tensor(valid), ta,
+                      tctx.clusters, t_tracker)
+    rng = np.random.RandomState(0)
+    out = []
+    for c, ((Wj, ev), (Wt, _)) in enumerate(zip(jws, tws)):
+        Wj = np.asarray(Wj, np.float32)
+        nudged = [Wt.numpy().astype(np.float32)] + [ulp_draw(Wj, rng) for _ in range(draws)]
+        out.append({"cluster": c, **als_split(Wj, Wt, ev, jctx.cluster_diag_mask,
+                                              jctx.cluster_init_A, _als_kw(jctx.cfg), nudged)})
+    return out
 
 
 def _coco17(tracklets):
@@ -962,6 +1075,98 @@ def rig128_study(n_frames: int) -> None:
           "first_diverging_frame_clusters": margins, "als_iters": to.als_iters.tolist()})
 
 
+# the clustered path with appearance: tests/test_torch_appearance.py's
+# clustered rig (its CLUSTERED config) at 10 views in 3 clusters, seed 2
+CLUSTERED_APPEARANCE_CFG = dict(n_views=10, max_people=4, max_tracks=6, max_frames=None,
+                                als_max_iter=100, assoc_clusters=3, appearance_dim=8,
+                                appearance_auto_target_px=8.0)
+CLUSTERED_APPEARANCE_SCENE = dict(n_frames=30, n_people=3, n_views=10, seed=2)
+CLUSTERED_APPEARANCE_EMBED = dict(dim=8, noise=0.05, shared_frac=0.83)
+
+
+def clustered_appearance_study(over: dict = CLUSTERED_APPEARANCE_CFG,
+                               scene: dict = CLUSTERED_APPEARANCE_SCENE,
+                               embed: dict = CLUSTERED_APPEARANCE_EMBED,
+                               draws: int = 4) -> dict:
+    """Both packages' whole run of the clustered association with
+    appearance on the CPU (the JAX side on its XLA ALS): the filter and one
+    `run_offline` each, with `synthetic_appearance(**embed)`.  Prints and
+    returns "clustered_appearance_reference" (the JAX run's tracklets,
+    reprojection and per-frame ALS iterations, summed over the clusters)
+    and "clustered_appearance_sequence" (the port's, the first frame whose
+    decisions differ, the largest pose difference before it, and at that
+    frame `cluster_splits` from the JAX run's state: each cluster's ALS
+    iterations and caps, the entries that binarize otherwise with their
+    margins and reach, whether each split is a tie that rounding decides,
+    and whether the port's ALS on JAX's W gives JAX's grouping)."""
+    from multiview_motion_capture_torch.config import PipelineConfig as TConfig
+    from multiview_motion_capture_torch.data.synthetic import synthetic_appearance as t_app
+    from multiview_motion_capture_tpu.config import PipelineConfig as JConfig
+    from multiview_motion_capture_tpu.data.synthetic import synthetic_appearance as j_app
+
+    jcfg, tcfg = JConfig(**over, als_backend="xla"), TConfig(**over)
+    js, ts = j_synth(cfg=jcfg, **scene), t_synth(cfg=tcfg, **scene)
+    assert np.array_equal(js.batch.kps, ts.batch.kps)
+    japp, tapp = j_app(js, **embed), t_app(ts, **embed)
+    assert np.array_equal(japp, tapp)
+    jb, tb = j_filter(js.batch, jcfg), t_filter(ts.batch, tcfg)
+    jctx = j_tracker.TrackerContext.build(js.cameras, jcfg)
+    tctx = t_tracker.TrackerContext.build(ts.cameras, tcfg, device="cpu")
+    F = scene["n_frames"]
+    _, jo = j_tracker.run_offline(jctx, jnp.asarray(jb.kps), jnp.asarray(jb.valid),
+                                  app=jnp.asarray(japp))
+    jo = jax.device_get(jo)
+    _, to = t_tracker.run_offline(tctx, tb.kps, tb.valid, app=tapp)
+    to = t_tracker.outputs_to_numpy(to)
+    j_dig, t_dig = t_eval.decision_digests(jo), t_eval.decision_digests(to)
+    first = next((f for f in range(F) if j_dig[f] != t_dig[f]), None)
+    rig = {"frames": F, "views": over["n_views"], "clusters": over["assoc_clusters"],
+           "seed": scene["seed"], "als_max_iter": over["als_max_iter"]}
+
+    def tracklets(pkg, out):
+        return t_pipeline.filter_ghost_tracklets(pkg.assemble_tracklets(out),
+                                                 tcfg.min_track_length)
+
+    ref = {"study": "clustered_appearance_reference", **rig,
+           **_quality(tracklets(j_tracker, jo), js, j_eval),
+           "als_iters": np.asarray(jo.als_iters).tolist()}
+    emit(ref)
+    stop = F if first is None else first
+    upd = np.asarray(jo.updated)[:stop] & to.updated[:stop]
+    splits = None
+    if first is not None:
+        jstate = j_tracker.TrackerState.zeros(jcfg)
+        if first > 0:
+            jstate, _ = j_tracker.run_offline(jctx, jnp.asarray(jb.kps[:first]),
+                                              jnp.asarray(jb.valid[:first]),
+                                              app=jnp.asarray(japp[:first]))
+        splits = cluster_splits(jctx, tctx, jstate, jb.kps[first], jb.valid[first],
+                                japp[first], draws)
+    differing = [c for c in splits or () if c["x_bin_entries_differing"]]
+    seq = {"study": "clustered_appearance_sequence", **rig,
+           **_quality(tracklets(t_tracker, to), ts, t_eval),
+           "first_diverging_frame": first,
+           "max_pose_diff_m_before": (float(np.abs(np.asarray(jo.pose3d)[:stop]
+                                                   - to.pose3d[:stop])[upd].max())
+                                      if upd.any() else None),
+           "als_iters_there": (None if first is None else
+                               {"jax": int(jo.als_iters[first]),
+                                "port": int(to.als_iters[first])}),
+           "first_diverging_frame_clusters": splits,
+           "smallest_margin": (None if splits is None else
+                               {"jax": min(c["min_margin_jax"] for c in splits),
+                                "port": min(c["min_margin_port"] for c in splits)}),
+           "port_als_on_jax_w_gives_jax_grouping": (
+               None if splits is None
+               else all(c["port_on_jax_w_gives_jax_grouping"] for c in splits)),
+           "split_is_rounding_tie": (None if splits is None else
+                                     bool(differing) and all(c["near_tie"]
+                                                             for c in differing)),
+           "als_iters": to.als_iters.tolist()}
+    emit(seq)
+    return {"reference": ref, "sequence": seq}
+
+
 def cold_sensitivity_study(seeds, draws: int, n_frames: int = 6, delta: float = 1e-7) -> None:
     import functools
 
@@ -1366,8 +1571,9 @@ def steps_study(scene: str, n_frames: int) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--study", choices=("shelf", "wide", "rig128", "bench", "cold", "default",
-                                        "appearance", "identity", "detect", "train", "steps"),
+    ap.add_argument("--study", choices=("shelf", "wide", "rig128", "clustered_appearance",
+                                        "bench", "cold", "default", "appearance", "identity",
+                                        "detect", "train", "steps"),
                     default="shelf")
     ap.add_argument("--solver", choices=("gj", "gj_fused"), default="gj",
                     help="the LM solver of --study wide")
@@ -1376,9 +1582,10 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=None,
                     help="frames of the scene (300 for shelf and default, 60 for wide "
                          "and detect, 200 for appearance and identity, 20 for steps, "
-                         "8 for rig128, 12 for bench)")
+                         "8 for rig128, 12 for bench, 30 for clustered_appearance)")
     ap.add_argument("--draws", type=int, default=None,
-                    help="perturbation draws (12 for shelf, 2 for cold, 4 for bench)")
+                    help="perturbation draws (12 for shelf, 2 for cold, 4 for bench and "
+                         "clustered_appearance)")
     args = ap.parse_args()
     torch.set_num_threads(1)
     if args.study == "steps":
@@ -1402,6 +1609,11 @@ def main() -> None:
         return
     if args.study in ("default", "appearance"):
         preset_study(args.study, args.frames or (300 if args.study == "default" else 200))
+        return
+    if args.study == "clustered_appearance":
+        clustered_appearance_study(scene=dict(CLUSTERED_APPEARANCE_SCENE,
+                                              n_frames=args.frames or 30),
+                                   draws=args.draws or 4)
         return
     args.draws = args.draws or 12
     if args.study == "wide":

@@ -16,16 +16,16 @@ from multiview_motion_capture_torch.ops import association as TA
 from multiview_motion_capture_torch.ops import cuda_lib
 from multiview_motion_capture_tpu.ops import als_pallas as JP
 from multiview_motion_capture_tpu.ops import association as JA
+from tests.torch_study_scene import one_thread
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    # the plain versions run thousands of tiny ops: one thread each, or the
-    # parallel test workers oversubscribe the cores
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _random_problem(seed, sizes=(3, 3, 2, 3), n_people=3):

@@ -34,6 +34,7 @@ from multiview_motion_capture_tpu import tracker as JT
 from multiview_motion_capture_tpu.config import PipelineConfig as JConfig
 from multiview_motion_capture_tpu.data.synthetic import synthetic_appearance as j_app
 from multiview_motion_capture_tpu.data.synthetic import synthetic_sequence as j_synth
+from tests.torch_study_scene import one_thread
 
 DECISIONS = ("track_id", "active", "updated", "spawned", "died_track_id", "matched_pose")
 POSE_TOL_M = 1e-3
@@ -47,12 +48,13 @@ SCENE = dict(n_frames=N_FRAMES, n_people=3, n_views=4, seed=3, drop_prob=0.1)
 EMBED = dict(dim=D, noise=0.05, shared_frac=0.83)
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _state_arrays(state):
@@ -61,7 +63,6 @@ def _state_arrays(state):
 
 @pytest.fixture(scope="module")
 def runs():
-    torch.set_num_threads(1)
     jc, tc = JConfig(**CFG), TConfig(**CFG)
     js, ts = j_synth(cfg=jc, **SCENE), t_synth(cfg=tc, **SCENE)
     japp, tapp = j_app(js, **EMBED), t_app(ts, **EMBED)
@@ -203,7 +204,6 @@ def clustered():
     weigh over 0.5 (a JAX run of the scene would compile the clustered
     scan with appearance, ~20 s on the CPU, for a state the comparison
     does not need to be JAX's)."""
-    torch.set_num_threads(1)
     jc, tc = JConfig(**CLUSTERED, als_backend="xla"), TConfig(**CLUSTERED)
     js, ts = j_synth(cfg=jc, **CLUSTERED_SCENE), t_synth(cfg=tc, **CLUSTERED_SCENE)
     tctx = TT.TrackerContext.build(ts.cameras, tc, device="cpu")

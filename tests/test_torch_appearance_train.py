@@ -22,10 +22,20 @@ from multiview_motion_capture_torch.models import checkpoint as t_ckpt
 from multiview_motion_capture_torch.models import optim as t_optim
 from multiview_motion_capture_tpu.data import appearance_train as j_app
 from multiview_motion_capture_tpu.models import appearance_net as J
+from tests.torch_study_scene import one_thread
 
 RTOL = 1e-6
 STEP_LOSS_RTOL = 1e-5
 STEP_PARAM_TOL_LR = 0.05
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _embeddings(seed, n_ids=6, per=5, dim=12, lone=True):

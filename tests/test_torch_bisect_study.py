@@ -25,12 +25,13 @@ SHELF_BENCH's 5-iteration warm LM leaves the two packages' poses apart
 by their rounding (ROADMAP C, tests/test_torch_bench.py's seeds 1 and 3);
 at 8 frames the gaps are 3.6e-6 px (mean) and 2.3e-5 px (median).
 """
+import contextlib
 import dataclasses
+import io
 import json
 
 import jax
 import pytest
-import torch
 
 from multiview_motion_capture_torch import config as t_config
 from multiview_motion_capture_torch.cameras import CameraBank
@@ -53,20 +54,21 @@ SETTLED_CAP = 1000
 REPROJ_TOL_PX = 1e-4
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
     with one_thread():
         yield
 
 
-def test_bench_quality_bisect_matches_jax(tmp_path, monkeypatch, capsys):
-    root = write_scene(tmp_path)
-    monkeypatch.setattr(j_bisect, "SHELF_BENCH",
-                        dataclasses.replace(J_SHELF, als_max_iter=SETTLED_CAP))
-    monkeypatch.setattr(j_bisect, "load_openpose_dir",
-                        lambda _path, cfg: j_load(root / "kps_opn", cfg,
-                                                  max_frames=BISECT_FRAMES))
-    monkeypatch.setattr(j_bisect, "CameraBank", JaxCameras(root))
+@pytest.fixture(scope="module")
+def bisect(tmp_path_factory):
+    """Both scripts on the scene: the JAX script's JSON line with its
+    `pipeline.run` results and metrics, the port's, and the port's tracker
+    passes."""
+    root = write_scene(tmp_path_factory.mktemp("bisect_scene"))
     j_runs, j_metrics = [], []
     real_run, real_metrics = j_bisect.run, j_bisect.reprojection_metrics
 
@@ -78,33 +80,51 @@ def test_bench_quality_bisect_matches_jax(tmp_path, monkeypatch, capsys):
         j_metrics.append(real_metrics(*a, **k))
         return j_metrics[-1]
 
-    monkeypatch.setattr(j_bisect, "run", run)
-    monkeypatch.setattr(j_bisect, "reprojection_metrics", metrics)
-    j_bisect.main()
-    j_out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    results, printed = {}, io.StringIO()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_bisect, "SHELF_BENCH", dataclasses.replace(J_SHELF, als_max_iter=SETTLED_CAP))
+        mp.setattr(j_bisect, "load_openpose_dir",
+                   lambda _path, cfg: j_load(root / "kps_opn", cfg, max_frames=BISECT_FRAMES))
+        mp.setattr(j_bisect, "CameraBank", JaxCameras(root))
+        mp.setattr(j_bisect, "run", run)
+        mp.setattr(j_bisect, "reprojection_metrics", metrics)
+        with contextlib.redirect_stdout(printed):
+            j_bisect.main()
+        j_out = json.loads(printed.getvalue().strip().splitlines()[-1])
+        mp.setattr(t_config, "SHELF_BENCH", dataclasses.replace(T_SHELF, als_max_iter=SETTLED_CAP))
+        with chip_smoke.recording_run_offline() as passes, \
+                contextlib.redirect_stdout(io.StringIO()):
+            out = t_bisect.main(["--data_dir", str(root), "--max_frames", str(BISECT_FRAMES),
+                                 "--cpu"], outputs=results)
+    cfg = dataclasses.replace(T_SHELF, max_frames=BISECT_FRAMES)
+    return dict(out=out, j_out=j_out, results=results, passes=passes, j_runs=j_runs,
+                j_metrics=j_metrics, batch=load_openpose_dir(root / "kps_opn", cfg),
+                cams=CameraBank.from_json_dir(root / "calibs"))
 
-    monkeypatch.setattr(t_config, "SHELF_BENCH",
-                        dataclasses.replace(T_SHELF, als_max_iter=SETTLED_CAP))
-    results = {}
-    with chip_smoke.recording_run_offline() as passes:
-        out = t_bisect.main(["--data_dir", str(root), "--max_frames", str(BISECT_FRAMES),
-                             "--cpu"], outputs=results)
-    capsys.readouterr()
-    assert list(out) == list(j_out) == list(t_bisect.VARIANTS)
+
+def test_variants_and_keys_match_jax(bisect):
+    assert list(bisect["out"]) == list(bisect["j_out"]) == list(t_bisect.VARIANTS)
+    assert len(bisect["j_runs"]) == len(bisect["j_metrics"]) == len(t_bisect.VARIANTS)
+
+
+def test_every_frame_settles(bisect):
     # each variant's timed pass settles every frame's ALS below the cap
-    for _, o in passes[1::2]:
+    assert len(bisect["passes"]) == 2 * len(t_bisect.VARIANTS)
+    for _, o in bisect["passes"][1::2]:
         iters = outputs_to_numpy(o).als_iters
         assert len(iters) == BISECT_FRAMES and (iters < SETTLED_CAP).all(), iters
-    cfg = dataclasses.replace(T_SHELF, max_frames=BISECT_FRAMES)
-    batch = load_openpose_dir(root / "kps_opn", cfg)
-    cams = CameraBank.from_json_dir(root / "calibs")
-    for i, name in enumerate(t_bisect.VARIANTS):
-        got, ref = out[name], j_out[name]
-        assert set(got) == set(ref)
-        assert got["n_tracklets"] == ref["n_tracklets"] >= 3, name
-        assert got["top_lengths"] == ref["top_lengths"], name
-        assert [list(t.frame_idxs) for t in results[name].tracklets] == \
-            [list(t.frame_idxs) for t in j_runs[i].tracklets], name
-        m, jm = reprojection_metrics(results[name].tracklets, batch, cams), j_metrics[i]
-        assert abs(m.mean_reproj_px - jm.mean_reproj_px) <= REPROJ_TOL_PX, name
-        assert abs(m.median_reproj_px - jm.median_reproj_px) <= REPROJ_TOL_PX, name
+
+
+@pytest.mark.parametrize("i,name", list(enumerate(t_bisect.VARIANTS)))
+def test_bench_quality_bisect_matches_jax(bisect, i, name):
+    got, ref = bisect["out"][name], bisect["j_out"][name]
+    assert set(got) == set(ref)
+    assert got["n_tracklets"] == ref["n_tracklets"] >= 3, name
+    assert got["top_lengths"] == ref["top_lengths"], name
+    res = bisect["results"][name]
+    assert [list(t.frame_idxs) for t in res.tracklets] == \
+        [list(t.frame_idxs) for t in bisect["j_runs"][i].tracklets], name
+    m = reprojection_metrics(res.tracklets, bisect["batch"], bisect["cams"])
+    jm = bisect["j_metrics"][i]
+    assert abs(m.mean_reproj_px - jm.mean_reproj_px) <= REPROJ_TOL_PX, name
+    assert abs(m.median_reproj_px - jm.median_reproj_px) <= REPROJ_TOL_PX, name

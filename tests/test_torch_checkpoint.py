@@ -31,18 +31,20 @@ from multiview_motion_capture_tpu import tracker as JT
 from multiview_motion_capture_tpu.config import PipelineConfig as JConfig
 from multiview_motion_capture_tpu.data.synthetic import synthetic_sequence as j_synth
 from multiview_motion_capture_tpu.utils import checkpoint as j_ckpt
+from tests.torch_study_scene import one_thread
 
 TRI_TOL_M = 1e-5
 CFG = dict(n_views=4, max_people=6, max_tracks=8, max_frames=None)
 SCENE = dict(n_frames=9, n_people=2, n_views=4, drop_prob=0.0, seed=4)
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _assert_bit_equal(a, b):

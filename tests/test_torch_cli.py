@@ -12,7 +12,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 from multiview_motion_capture_tpu import __main__ as j_cli
 from multiview_motion_capture_torch import __main__ as t_cli
@@ -25,9 +24,19 @@ from multiview_motion_capture_torch.utils.bvh import read_bvh
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the scene writer the card's CLI phase uses)
+from tests.torch_study_scene import one_thread  # noqa: E402
 
 POSE_TOL_M = 1e-3     # port vs JAX poses (tests/test_torch_default_preset.py)
 X_TOL = 0.1           # the dump's X on solved elements (tests/test_torch_debug.py)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 @pytest.mark.parametrize("preset,n_views,kw", [
@@ -65,7 +74,6 @@ def test_unported_modes_and_flags_are_absent(capsys, tmp_path):
         t_cli.main(["bench", "--help"])
     assert {"--data_dir", "--cpu"} <= set(re.findall(r"--[a-z_]+", capsys.readouterr().out))
 
-    torch.set_num_threads(1)
     cfg = dataclasses.replace(T_SHELF_BENCH, max_frames=None)
     seq = synthetic_sequence(cfg=cfg, n_frames=4, n_people=2, n_views=5, seed=2)
     chip_smoke.write_scene_files(seq, tmp_path / "shelf", 4, kps_dir="kps_opn")
@@ -105,7 +113,6 @@ def test_run_matches_jax(scene, tmp_path, capsys):
     """Tracklets: ids, frames and matches equal, poses within POSE_TOL_M;
     each BVH replays within POSE_TOL_M of JAX's; the debug dump's files,
     groups and solved x_bin equal, X within X_TOL on solved elements."""
-    torch.set_num_threads(1)
     common = ["--kps_dir", str(scene / "kps"), "--calib_dir", str(scene / "calibs"), "--bvh",
               "--reid", "--crossings", "--cpu", "--max_frames", "8", "--max_people", "4",
               "--max_tracks", "6", "--debug_frames", "0,5"]
@@ -149,7 +156,6 @@ def test_run_mesh_spec(scene, tmp_path, monkeypatch, capsys):
     2-way track mesh over the CPU), with the tracklets of the run without
     it; a bad spec raises JAX's CLI's error, from the spec's parse or the
     context's divisibility check."""
-    torch.set_num_threads(1)
     specs = []
     run = t_pipeline.run
 
@@ -186,7 +192,6 @@ def test_detect_on_png_frames(tmp_path, capsys):
     the library path's (`frames_to_frame_batch` + `pipeline.run`) on them."""
     import cv2
 
-    torch.set_num_threads(1)
     seq, _, frames, cams = chip_smoke.detect_scene(2)
     root = tmp_path / "scene"
     for v in range(frames.shape[1]):

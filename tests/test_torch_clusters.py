@@ -40,6 +40,7 @@ from multiview_motion_capture_tpu.data.ingest import filter_bad_poses as j_filte
 from multiview_motion_capture_tpu.data.synthetic import synthetic_sequence as j_synth
 from multiview_motion_capture_tpu.ops import als_pallas as JP
 from multiview_motion_capture_tpu.ops import ik as JI
+from tests.torch_study_scene import one_thread
 
 DECISIONS = ("track_id", "active", "updated", "spawned", "died_track_id", "matched_pose")
 POSE_TOL_M = 1e-3
@@ -57,12 +58,13 @@ CASES = {
 }
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _state_arrays(state):
@@ -154,7 +156,6 @@ def _run_both(case, V, C, seed, extra):
 def run(request):
     """Both packages over the case's scene, built once per case (the JAX
     side compiles its scan)."""
-    torch.set_num_threads(1)
     V, C, seed, extra = CASES[request.param]
     return _run_both(request.param, V, C, seed, extra)
 

@@ -25,7 +25,6 @@ import json
 
 import numpy as np
 import pytest
-import torch
 
 from multiview_motion_capture_tpu import debug as j_debug
 from multiview_motion_capture_tpu.config import PipelineConfig as JConfig
@@ -35,6 +34,7 @@ from multiview_motion_capture_torch import debug as t_debug
 from multiview_motion_capture_torch.cameras import CameraBank
 from multiview_motion_capture_torch.config import PipelineConfig as TConfig
 from multiview_motion_capture_torch.tracker import TrackerContext as TContext
+from tests.torch_study_scene import one_thread
 
 X_TOL = 0.1
 SIM_TOL = 1e-5      # the similarity: f64 in the port rounded once, f32 in JAX
@@ -49,6 +49,15 @@ SCENES = {
     "clustered": (dict(n_views=8, max_people=4, max_tracks=6, als_max_iter=100,
                        assoc_clusters=2), 8, 10, [3], None),
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _dumps(tmp_path, monkeypatch, name):
@@ -74,7 +83,6 @@ def _dumps(tmp_path, monkeypatch, name):
 
 @pytest.mark.parametrize("name", list(SCENES))
 def test_dump_matches_jax(tmp_path, monkeypatch, name):
-    torch.set_num_threads(1)
     cfg, jp, tp = _dumps(tmp_path, monkeypatch, name)
     T, P = cfg.max_tracks, cfg.max_people
     assert [p.name for p in tp] == [p.name for p in jp] and tp
@@ -135,7 +143,6 @@ def test_replay_states_equal_run_offline():
     from multiview_motion_capture_torch.data.synthetic import synthetic_sequence as t_seq
     from multiview_motion_capture_torch.tracker import TrackerState, run_offline
 
-    torch.set_num_threads(1)
     cfg = TConfig(n_views=4, max_people=4, max_tracks=6, als_max_iter=100)
     seq = t_seq(n_frames=6, n_people=2, n_views=4, cfg=cfg, seed=3, drop_prob=0.15)
     ctx = TContext.build(seq.cameras, cfg, device="cpu")

@@ -31,6 +31,7 @@ from multiview_motion_capture_torch.data.synthetic import synthetic_sequence as 
 from multiview_motion_capture_tpu import tracker as JT
 from multiview_motion_capture_tpu.config import PipelineConfig as JConfig
 from multiview_motion_capture_tpu.data.synthetic import synthetic_sequence as j_synth
+from tests.torch_study_scene import one_thread
 
 DECISIONS = ("track_id", "active", "updated", "spawned", "died_track_id", "matched_pose")
 POSE_TOL_M = 1e-3
@@ -39,12 +40,13 @@ NARROW = dict(n_views=4, max_people=4, max_tracks=6, max_frames=None)
 SCENE = dict(n_frames=N_FRAMES, n_people=3, n_views=4, seed=1)
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _stack(outs):
@@ -54,7 +56,6 @@ def _stack(outs):
 
 @pytest.fixture(scope="module")
 def runs():
-    torch.set_num_threads(1)
     jc, tc = JConfig(**NARROW), TConfig(**NARROW)
     js, ts = j_synth(cfg=jc, **SCENE), t_synth(cfg=tc, **SCENE)
     jctx = JT.TrackerContext.build(js.cameras, jc)
@@ -121,7 +122,6 @@ def streams(runs):
     `update` per frame and by `update_batch` in chunks of 4 with `pad_to=4`
     (the tail chunk of 2 is short), and the JAX package's `MvTracker` by
     `update_batch` the same way."""
-    torch.set_num_threads(1)
     ts, js = runs["ts"], runs["js"]
     one = MvTracker(ts.cameras, runs["tc"], device="cpu")
     for f in range(N_FRAMES):

@@ -49,12 +49,22 @@ from multiview_motion_capture_tpu.data import render as j_render  # noqa: E402
 from multiview_motion_capture_tpu.data.synthetic import synthetic_sequence as j_synth  # noqa: E402
 from multiview_motion_capture_tpu.models import appearance_net as j_app  # noqa: E402
 from multiview_motion_capture_tpu.models import checkpoint as j_ckpt  # noqa: E402
+from tests.torch_study_scene import one_thread  # noqa: E402
 
 CKPT = chip_smoke.CHECKPOINTS
 F32_KPS_TOL_PX = 1e-3
 SCENE = dict(n_frames=2, n_people=4, n_views=3, seed=1, noise_px=0.0, drop_prob=0.0,
              min_person_distance=1.2)
 CFG = dict(n_views=3, max_people=8, max_tracks=12, max_frames=None)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -54,8 +54,11 @@ SCENE = dict(n_frames=1, n_people=4, n_views=5, seed=1, noise_px=0.0, drop_prob=
              min_person_distance=1.2)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
     with one_thread():
         yield
 

@@ -36,18 +36,31 @@
   against JAX's `main` on the same weights, in f32: the port trains them
   (a short, cached training), and the test writes them where JAX's
   `main(cache=True)` looks for its trained checkpoint, so JAX's `main`
-  loads them instead of training.  Valid detections equal, keypoints of
-  the valid detections within KPS_TOL_PX, recall equal, the matched error
-  within DET_ERR_TOL_PX, tracklet lengths equal and MPJPE within
-  MPJPE_TOL_M; at least one valid detection in every image and one long
-  tracklet, so the comparison holds something.  The weights need a
-  detector that proposes mostly people: after 100 steps at a batch of 2 on
-  4 frames it proposed every slot, two of them junk in each view, and
-  frame 0's ALS on that ambiguous problem settled in both packages (162
-  and 90 iterations) on other groupings even from the same detections (the
-  ALS rounds such a problem either way, ROADMAP C); TRAIN on SCENE's 3
-  frames stays within the file's time on the CPU.
+  loads them instead of training.  The weights need a detector that
+  proposes mostly people: after 100 steps at a batch of 2 on 4 frames it
+  proposed every slot, two of them junk in each view, and frame 0's ALS on
+  that ambiguous problem settled in both packages (162 and 90 iterations)
+  on other groupings even from the same detections (the ALS rounds such a
+  problem either way, ROADMAP C); TRAIN on SCENE's 3 frames stays within
+  the file's time on the CPU.  Each host trains its own weights (bf16 on
+  its CPU), so the test holds each half on the same inputs:
+  (a) the detections: valid detections equal, keypoints of the valid
+  detections within KPS_TOL_PX, recall equal, the matched error within
+  DET_ERR_TOL_PX, at least one valid detection in every image;
+  (b) the port's tracker on JAX's own detections (`pipeline.run` on JAX's
+  FrameBatch carried over field for field): tracklet lengths equal, the
+  long tracklets as many and their MPJPE within MPJPE_TOL_M;
+  (c) the port end to end: its tracklets equal JAX's (lengths, long
+  tracklets, MPJPE), or the first frame whose decisions differ is split by
+  a tie that rounding decides (`first_split`).  The detections differ by up
+  to one f32 unit in the last place of a coordinate (3.05e-5 px at 256-512
+  px); on one host's weights that moved one entry of frame 1's ALS, 0.0037
+  from 0.5 in JAX and 0.084 on the port's side, while JAX's own X there
+  moves by 0.236 (to 0.740) when JAX's detections move to the port's.  A
+  split whose margin that reach does not cover fails.
 """
+import dataclasses
+import json
 import sys
 from pathlib import Path
 
@@ -57,10 +70,16 @@ import numpy as np
 import pytest
 import torch
 
+from multiview_motion_capture_torch import eval as t_eval
+from multiview_motion_capture_torch import pipeline as t_pipeline
+from multiview_motion_capture_torch import tracker as TT
+from multiview_motion_capture_torch.data import ingest as t_ingest
 from multiview_motion_capture_torch.models import checkpoint as t_ckpt
 from multiview_motion_capture_torch.models import pose_net as T
 from multiview_motion_capture_torch.utils import testcache as t_cache
 from multiview_motion_capture_tpu import pipeline as j_pipeline
+from multiview_motion_capture_tpu import tracker as JT
+from multiview_motion_capture_tpu.data import ingest as j_ingest
 from multiview_motion_capture_tpu.data import detect as j_detect
 from multiview_motion_capture_tpu.data.synthetic import synthetic_sequence as j_synth
 from multiview_motion_capture_tpu.models import pose_net as J
@@ -73,6 +92,10 @@ import examples.e2e_synthetic as j_synth_ex  # noqa: E402
 import examples.torch_e2e_fullframe as t_full  # noqa: E402
 import examples.torch_e2e_synthetic as t_synth_ex  # noqa: E402
 
+sys.path.insert(0, str(ROOT / "scripts"))
+import torch_parity_study as parity  # noqa: E402
+from tests.torch_study_scene import one_thread  # noqa: E402
+
 TARGET_TOL = 1e-6
 STEP_LOSS_RTOL = 1e-5
 STEP_PARAM_TOL = 1e-6
@@ -84,6 +107,7 @@ JAX_MEAN_RTOL = 3e-5       # XLA's CPU f32 mean of ~1e5 terms (measured 1.3e-5)
 KPS_TOL_PX = 0.01
 DET_ERR_TOL_PX = 0.01
 MPJPE_TOL_M = 0.005
+SPLIT_DRAWS = 4             # +-DELTA moves of JAX's detections (first_split)
 SCENE = dict(n_frames=3, n_people=2, n_views=4, seed=0)
 # the weights the inference half runs on: the example's training at a
 # batch of 4 full frames and 4 crops a step (the example's is 8 and 8)
@@ -92,6 +116,15 @@ CPU = torch.device("cpu")
 
 
 J_CONFIG, J_NET = J.PoseNetConfig, J.PoseNet
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _f32_config(*args, **kwargs):
@@ -288,12 +321,97 @@ def trained(scene):
     return net
 
 
+def _recording(seen, key, real):
+    def call(*args, **kwargs):
+        seen[key] = real(*args, **kwargs)
+        seen[key + "_args"] = args
+        return seen[key]
+    return call
+
+
+def _outputs(pkg, run_offline_result):
+    out = run_offline_result[1]
+    return pkg.outputs_to_numpy(out) if pkg is TT else jax.device_get(out)
+
+
+def _filter_margins(kps, cfg, slots) -> float:
+    """The smallest distance of the bad-pose filter's inputs at `slots`
+    from its thresholds: a keypoint score from `filter_min_kps_score`, a
+    side of the box over the valid keypoints from `filter_min_bbox_px`."""
+    out = np.inf
+    for f, v, p in slots:
+        k = kps[f, v, p]
+        ok = k[:, 2] > cfg.filter_min_kps_score
+        out = min(out, float(np.abs(k[:, 2] - cfg.filter_min_kps_score).min()))
+        if ok.any():
+            side = k[ok, :2].max(0) - k[ok, :2].min(0)
+            out = min(out, float(np.abs(side - cfg.filter_min_bbox_px).min()))
+    return out
+
+
+def first_split(jdets, tdets, jcams, tcams, jcfg, tcfg, jo, to) -> dict:
+    """Where JAX's run on its detections and the port's on its own first
+    part, and the decision that flips there.
+
+    The first frame whose decisions differ (`eval.decision_digests`); JAX's
+    state before it (its step over the frames before, from zeros).  When the
+    bad-pose filter keeps other detections there: the filter gate, its
+    inputs' smallest distance from its thresholds in each package, and the
+    bound 2 DELTA (a box side is a difference of two coordinates, each
+    DELTA apart).  Else the frame's ALS problem (`torch_parity_study.
+    als_split`): JAX's W from JAX's detections against the port's W from
+    the port's, both from JAX's state; the nudges are JAX's W from the
+    port's detections and from JAX's moved by +-DELTA at random, DELTA being
+    the largest difference of the two packages' detections at that frame.
+    So the bound is the reach of JAX's own X under an input difference of
+    the size measured, not anything the split itself shows."""
+    j_dig, t_dig = t_eval.decision_digests(jo), t_eval.decision_digests(to)
+    f = next(i for i in range(len(j_dig)) if j_dig[i] != t_dig[i])
+    jf, tf = j_ingest.filter_bad_poses(jdets, jcfg), t_ingest.filter_bad_poses(tdets, tcfg)
+    both = jdets.valid[f] & tdets.valid[f]
+    delta = float(np.abs(jdets.kps[f][both] - tdets.kps[f][both]).max())
+    out = {"frame": f, "delta_px": delta,
+           "decisions_differing": [k for k in t_eval.DECISION_FIELDS
+                                   if not np.array_equal(np.asarray(getattr(jo, k))[f],
+                                                         np.asarray(getattr(to, k))[f])]}
+    if not np.array_equal(jf.valid[f], tf.valid[f]):
+        slots = [(f, v, p) for v, p in np.argwhere(jf.valid[f] != tf.valid[f])]
+        margin = min(_filter_margins(jdets.kps, jcfg, slots),
+                     _filter_margins(tdets.kps, tcfg, slots))
+        return {**out, "decision": "filter", "slots": slots, "tie_margin": margin,
+                "tie_bound": 2 * delta, "near_tie": margin <= 2 * delta}
+    jctx = JT.TrackerContext.build(jcams, jcfg, use_ik=False)
+    tctx = TT.TrackerContext.build(tcams, tcfg, use_ik=False, device="cpu")
+    jstate, jstep = JT.TrackerState.zeros(jcfg), jax.jit(JT.make_step(jctx))
+    for i in range(f):
+        jstate, _ = jstep(jstate, (jnp.asarray(jf.kps[i]), jnp.asarray(jf.valid[i])))
+    Wj, ev = parity.frame_ws(jctx, jstate, jf.kps[f], jf.valid[f], JT)
+    Wt, _ = parity.frame_ws(tctx, parity._carry(jstate), tf.kps[f], tf.valid[f], TT)
+    rng = np.random.RandomState(0)
+    moved = [tf.kps[f]]
+    for _ in range(SPLIT_DRAWS):
+        k = jf.kps[f].copy()
+        k[..., :2] += rng.choice([-delta, delta], k[..., :2].shape).astype(np.float32)
+        moved.append(k)
+    nudged = [parity.frame_ws(jctx, jstate, k, jf.valid[f], JT)[0] for k in moved]
+    split = parity.als_split(Wj, Wt, ev, jctx.diag_mask, jctx.init_A, parity._als_kw(jcfg),
+                             nudged)
+    return {**out, "decision": "als", **split}
+
+
 def test_inference_half_matches_jax(scene, trained, tmp_path, monkeypatch):
+    """(a) the port's detections against JAX's; (b) the port's tracker on
+    JAX's detections against JAX's run (lengths exact, MPJPE within
+    MPJPE_TOL_M); (c) the port end to end: equal to JAX's, or split at a
+    named frame by a tie that rounding decides (`first_split`)."""
     s, _ = scene
     mcfg = t_full.model_config(torch.float32)
     net = T.PoseNet(mcfg)
     net.load_state_dict(trained.state_dict())
-    out = t_full.detect_and_track(net.eval(), mcfg, s)
+    seen = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_pipeline, "run_offline", _recording(seen, "port_run", t_pipeline.run_offline))
+        out = t_full.detect_and_track(net.eval(), mcfg, s)
 
     # JAX's main loads the same weights from its train-once cache
     monkeypatch.setenv("MVMC_TEST_CKPT_CACHE", str(tmp_path))
@@ -302,28 +420,42 @@ def test_inference_half_matches_jax(scene, trained, tmp_path, monkeypatch):
         [J.__file__, j_full.__file__],
         f"fullframe-{steps}-" + "-".join(map(str, SCENE.values())))
     t_ckpt.save_posenet(j_cache.checkpoint_path("e2e_fullframe", fp), mcfg, net)
-    seen = {}
-
-    def recording(real, key):
-        def call(*args, **kwargs):
-            seen[key] = real(*args, **kwargs)
-            return seen[key]
-        return call
-
     monkeypatch.setattr(J, "PoseNetConfig", _f32_config)
     monkeypatch.setattr(j_detect, "frames_to_frame_batch",
-                        recording(j_detect.frames_to_frame_batch, "batch"))
-    monkeypatch.setattr(j_pipeline, "run", recording(j_pipeline.run, "result"))
+                        _recording(seen, "batch", j_detect.frames_to_frame_batch))
+    monkeypatch.setattr(j_pipeline, "run", _recording(seen, "result", j_pipeline.run))
+    monkeypatch.setattr(j_pipeline, "run_offline",
+                        _recording(seen, "jax_run", j_pipeline.run_offline))
     recall, det_err, n_long, mpjpe = j_full.main(steps=steps, cache=True, **SCENE)
     assert "batch" in seen, "JAX's main trained instead of loading the weights"
 
+    # (a) the detections
     jb, tb = seen["batch"], out["det_batch"]
     assert np.array_equal(jb.valid, tb.valid)
     assert tb.valid.any(axis=-1).all()          # every image has a valid detection
     assert np.abs(jb.kps[jb.valid] - tb.kps[tb.valid]).max() <= KPS_TOL_PX
     assert out["recall"] == recall and recall > 0
     assert abs(out["det_err"] - det_err) <= DET_ERR_TOL_PX
+
+    # (b) the port's tracker on JAX's detections, as the example runs it
     j_lengths = sorted(len(t) for t in seen["result"].tracklets)
-    assert sorted(len(t) for t in out["result"].tracklets) == j_lengths
-    assert out["n_long"] == n_long >= 1
-    assert abs(out["mpjpe"] - mpjpe) <= MPJPE_TOL_M
+    carried = t_ingest.FrameBatch(**{f.name: getattr(jb, f.name)
+                                     for f in dataclasses.fields(t_ingest.FrameBatch)})
+    on_jax = t_pipeline.run(carried, s.cams_small, s.cfg, use_ik=False, device="cpu")
+    assert sorted(len(t) for t in on_jax.tracklets) == j_lengths
+    long = [t for t in on_jax.tracklets if len(t) >= SCENE["n_frames"] // 2]
+    on_jax_mpjpe = t_eval.mpjpe_vs_ground_truth(long, s.seq.gt_3d)
+    print("on JAX's detections: lengths", j_lengths, "MPJPE m, port / JAX:", on_jax_mpjpe, mpjpe)
+    assert len(long) == n_long >= 1
+    assert abs(on_jax_mpjpe - mpjpe) <= MPJPE_TOL_M
+
+    # (c) the port end to end
+    if sorted(len(t) for t in out["result"].tracklets) == j_lengths:
+        assert out["n_long"] == n_long
+        assert abs(out["mpjpe"] - mpjpe) <= MPJPE_TOL_M
+        return
+    _, jcams, jcfg = seen["result_args"]
+    split = first_split(jb, tb, jcams, s.cams_small, jcfg, s.cfg,
+                        _outputs(JT, seen["jax_run"]), _outputs(TT, seen["port_run"]))
+    print("first split:", json.dumps(split))
+    assert split["near_tie"], split

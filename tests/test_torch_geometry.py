@@ -28,9 +28,19 @@ from multiview_motion_capture_tpu.data import ingest as JI
 from multiview_motion_capture_tpu.data.synthetic import synthetic_sequence as j_synth
 from multiview_motion_capture_tpu.ops import geometry as JG
 from multiview_motion_capture_tpu.ops.triangulate import triangulate_points as j_tri
+from tests.torch_study_scene import one_thread
 
 PX_TOL = 1e-3     # px, on distances of up to ~1e3 px
 M_TOL = 1e-4      # m
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 @pytest.fixture(scope="module")

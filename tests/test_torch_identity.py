@@ -41,6 +41,7 @@ from multiview_motion_capture_tpu.tracker import (
     run_offline as j_run_offline,
 )
 from multiview_motion_capture_tpu.utils import native
+from tests.torch_study_scene import one_thread
 
 
 # ---------------------------------------------------------------------------
@@ -52,6 +53,15 @@ def _both(tracklets):
     port = [TTracklet(**{k: getattr(t, k) for k in fields}) for t in tracklets]
     jax_ = [JTracklet(**{k: getattr(t, k) for k in fields}) for t in tracklets]
     return jax_, port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _assert_tracklets_equal(a, b):

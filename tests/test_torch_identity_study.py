@@ -31,8 +31,11 @@ jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 RIG = dict(n_views=6, n_people=4, n_frames=20)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
     with one_thread():
         yield
 

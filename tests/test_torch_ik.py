@@ -25,16 +25,18 @@ from multiview_motion_capture_torch.ops.triangulate import triangulate_points as
 from multiview_motion_capture_tpu.config import SHELF_BENCH as J_CFG
 from multiview_motion_capture_tpu.ops import fk as JF
 from multiview_motion_capture_tpu.ops import ik as JK
+from tests.torch_study_scene import one_thread
 
 EPS = 1e-5
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def t(a):

@@ -27,8 +27,11 @@ from multiview_motion_capture_tpu.ops import ik as JK
 from tests.torch_study_scene import one_thread
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
     with one_thread():
         yield
 

@@ -21,8 +21,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
 import torch_oracle_cache  # noqa: E402
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
     with one_thread():
         yield
 

@@ -59,6 +59,7 @@ from multiview_motion_capture_tpu.parallel import mesh as j_mesh
 from multiview_motion_capture_tpu.parallel import sharded_association as j_sa
 from multiview_motion_capture_tpu.parallel import sharded_solvers as j_ss
 from multiview_motion_capture_tpu.tracker import TrackerContext as JContext
+from tests.torch_study_scene import one_thread
 
 CPU = torch.device("cpu")
 DECISIONS = ("track_id", "active", "updated", "spawned", "died_track_id", "matched_pose")
@@ -69,16 +70,17 @@ LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-4        # of each leaf's largest magnitude
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
+
+
 def cpus(n):
     return [CPU] * n
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

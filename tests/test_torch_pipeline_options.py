@@ -14,7 +14,6 @@ import json
 
 import numpy as np
 import pytest
-import torch
 
 from multiview_motion_capture_torch import pipeline as t_pipeline
 from multiview_motion_capture_torch import tracker as TT
@@ -27,18 +26,20 @@ from multiview_motion_capture_tpu.config import PipelineConfig as JConfig
 from multiview_motion_capture_tpu.data import ingest as j_ingest
 from multiview_motion_capture_tpu.data.synthetic import synthetic_appearance as j_app
 from multiview_motion_capture_tpu.data.synthetic import synthetic_sequence as j_synth
+from tests.torch_study_scene import one_thread
 
 POSE_TOL_M = 1e-3
 TRI_TOL_M = 1e-5
 CFG = dict(n_views=4, max_people=6, max_tracks=8, max_frames=None)
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _assert_decisions_equal(port, jax_, tol):

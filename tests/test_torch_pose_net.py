@@ -25,6 +25,7 @@ import torch
 from multiview_motion_capture_torch.models import checkpoint as t_ckpt
 from multiview_motion_capture_torch.models import pose_net as T
 from multiview_motion_capture_tpu.models import pose_net as J
+from tests.torch_study_scene import one_thread
 
 SMALL = dict(img_hw=(64, 48), stage_features=(64, 64, 128), blocks_per_stage=1,
              head_features=64)
@@ -32,6 +33,15 @@ HEADS = {"keypoints": dict(), "center": dict(predict_center=True),
          "bottom_up": dict(predict_center=True, predict_offsets=True)}
 F32_HEAT_TOL = 1e-4
 BF16_HEAT_REL_TOL = 0.04
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _pair(head: str, dtype: str, seed: int = 0):

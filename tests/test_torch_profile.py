@@ -36,8 +36,18 @@ import chip_smoke  # noqa: E402  (the Shelf-layout scene writer)
 import torch_bench_detect  # noqa: E402
 import torch_profile_bench  # noqa: E402
 import torch_profile_cam128  # noqa: E402
+from tests.torch_study_scene import one_thread  # noqa: E402
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _jax_source(name: str) -> ast.Module:
@@ -65,14 +75,6 @@ def _jax_config_kwargs(name: str) -> dict:
             return {k.arg: ast.literal_eval(k.value) for k in node.keywords
                     if k.arg and isinstance(k.value, ast.Constant)}
     raise AssertionError(f"no PipelineConfig in scripts/{name}")
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_bench_detect_line_and_tracking(monkeypatch, capsys):
@@ -118,7 +120,6 @@ def shelf3(tmp_path_factory):
 
 
 def test_profile_bench_report_on_a_cpu_trace(shelf3, capsys):
-    torch.set_num_threads(1)
     rep = torch_profile_bench.main(["--data_dir", str(shelf3), "--cpu"])
     out = capsys.readouterr().out
     assert "steady-state:" in out and "== device cpu" in out

@@ -40,8 +40,18 @@ from multiview_motion_capture_torch.utils import profiling as t_prof
 from multiview_motion_capture_torch.utils import ref_compat as t_ref
 from multiview_motion_capture_torch.utils import tools as t_tools
 from multiview_motion_capture_torch.utils import viz as t_viz
+from tests.torch_study_scene import one_thread
 
 F32_TOL = 1e-6      # elementwise f32 math on the same inputs
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _t(a, dtype=torch.float32):
@@ -133,7 +143,6 @@ def test_quaternion_functions_match_jax():
 # Gauss-Jordan ALS at 83, 0.019 from 0.5)
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_associate_frame_matches_jax(seed):
-    torch.set_num_threads(1)
     cfg = JConfig(n_views=4, max_people=4)
     seq = synthetic_sequence(n_frames=1, n_people=3, n_views=4, cfg=cfg, seed=seed,
                              drop_prob=0.0)

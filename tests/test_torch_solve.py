@@ -9,6 +9,7 @@ import torch
 from multiview_motion_capture_torch.ops import cuda_lib
 from multiview_motion_capture_torch.ops import solve_kernel
 from multiview_motion_capture_tpu.ops import solve_pallas
+from tests.torch_study_scene import one_thread
 
 # both sides run the same no-pivot elimination in f32, in other orders of
 # rounding; systems with a condition number ~1e3 keep the relative error of
@@ -16,12 +17,13 @@ from multiview_motion_capture_tpu.ops import solve_pallas
 REL_TOL = 1e-4
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _lm_systems(seed, T=8, R=96, D=68):

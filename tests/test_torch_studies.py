@@ -53,12 +53,6 @@ GAIN_TOL_FTOL = 10.0     # |cost change| / (ftol * cost) of a slot JAX ran on
 IK_RIG = dict(n_views=8, n_people=3, n_frames=6, ik_max_views=4)
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    with one_thread():
-        yield
-
-
 def t(a):
     return torch.as_tensor(np.array(a))
 
@@ -112,13 +106,20 @@ def jax_lm_trace(x0, skel, obs, view_w, P, free, n_iters, ftol, xtol):
     return trace, x
 
 
-def test_ik_iteration_study_matches_jax(monkeypatch):
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
+
+
+@pytest.fixture(scope="module")
+def ik_study():
+    """Both scripts on IK_RIG: the JAX script's replays and warm solves
+    (inputs and counts), the port's line and outputs."""
     rig = IK_RIG
-    monkeypatch.setattr(j_ik_study, "N_VIEWS", rig["n_views"])
-    monkeypatch.setattr(j_ik_study, "N_PEOPLE", rig["n_people"])
-    monkeypatch.setattr(j_ik_study, "N_FRAMES", rig["n_frames"])
-    monkeypatch.setattr(j_ik_study, "PipelineConfig",
-                        lambda **kw: JConfig(**{**kw, "ik_max_views": rig["ik_max_views"]}))
     replays, calls = [], []
     real_replay, real_warm = j_ik_study.replay_states, j_ik_study._warm_iters
 
@@ -132,32 +133,50 @@ def test_ik_iteration_study_matches_jax(monkeypatch):
         calls.append((a, out))
         return out
 
-    monkeypatch.setattr(j_ik_study, "replay_states", replay)
-    monkeypatch.setattr(j_ik_study, "_warm_iters", warm)
-    j_ik_study.main()
-
     outs = {}
-    line = t_ik_study.main(["--cpu"], ik_max_views=rig["ik_max_views"], outputs=outs,
-                           **{k: rig[k] for k in ("n_views", "n_people", "n_frames")})
-    (_, j_outs), = replays
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_ik_study, "N_VIEWS", rig["n_views"])
+        mp.setattr(j_ik_study, "N_PEOPLE", rig["n_people"])
+        mp.setattr(j_ik_study, "N_FRAMES", rig["n_frames"])
+        mp.setattr(j_ik_study, "PipelineConfig",
+                   lambda **kw: JConfig(**{**kw, "ik_max_views": rig["ik_max_views"]}))
+        mp.setattr(j_ik_study, "replay_states", replay)
+        mp.setattr(j_ik_study, "_warm_iters", warm)
+        j_ik_study.main()
+        line = t_ik_study.main(["--cpu"], ik_max_views=rig["ik_max_views"], outputs=outs,
+                               **{k: rig[k] for k in ("n_views", "n_people", "n_frames")})
+    return dict(replays=replays, calls=calls, outs=outs, line=line)
+
+
+def _label(stages, ftol, xtol, budget):
+    return next(k for k, v in t_ik_study.VARIANTS.items() if v == (stages, ftol, xtol, budget))
+
+
+def test_ik_study_replays_and_calls_match_jax(ik_study):
+    (_, j_outs), = ik_study["replays"]
     for name in DECISIONS:
-        np.testing.assert_array_equal(getattr(outs["outs"], name),
+        np.testing.assert_array_equal(getattr(ik_study["outs"]["outs"], name),
                                       np.asarray(getattr(j_outs, name)), err_msg=name)
     n_update = int(sum((np.asarray(j_outs.updated) & ~np.asarray(j_outs.spawned)).any(1)))
-    assert len(calls) == n_update * len(t_ik_study.VARIANTS) > 0
-    assert set(line["extra"]) == {"rig"} | set(t_ik_study.VARIANTS)
+    assert len(ik_study["calls"]) == n_update * len(t_ik_study.VARIANTS) > 0
+    assert set(ik_study["line"]["extra"]) == {"rig"} | set(t_ik_study.VARIANTS)
 
-    # every warm solve of the JAX script, given to the port on its inputs
+
+@pytest.mark.parametrize("variant", list(t_ik_study.VARIANTS))
+def test_ik_iteration_study_matches_jax(ik_study, variant):
+    """Every warm solve of the JAX script under `variant`, given to the
+    port on its inputs; the port's own study counts what those count."""
     skel = TF.Skeleton.default()
-    by_label, parted = {}, []
-    for (x0, jskel, obs, w, P, budget, stages, ftol, xtol), (jit1, jit2) in calls:
+    counts, parted = [], []
+    for (x0, jskel, obs, w, P, budget, stages, ftol, xtol), (jit1, jit2) in \
+            ik_study["calls"]:
+        if _label(stages, ftol, xtol, budget) != variant:
+            continue
         it1, it2 = t_ik_study.warm_iters(t(x0), skel, t(obs), t(w), t(P), budget, stages,
                                          ftol, xtol)
-        label = next(k for k, v in t_ik_study.VARIANTS.items()
-                     if v == (stages, ftol, xtol, budget))
         j_counts, t_counts = (int(jit1), int(jit2)), (int(it1), int(it2))
-        by_label.setdefault(label, []).append(sum(t_counts))
-        assert sum(t_counts) <= sum(j_counts), (label, j_counts, t_counts)
+        counts.append(sum(t_counts))
+        assert sum(t_counts) <= sum(j_counts), (variant, j_counts, t_counts)
         for s, (jc, tc) in enumerate(zip(j_counts, t_counts)):
             if jc == tc:
                 continue
@@ -171,13 +190,13 @@ def test_ik_iteration_study_matches_jax(monkeypatch):
             trace, _ = jax_lm_trace(start, jskel, obs, w, P, free, budget, ftol, xtol)
             # JAX's own count moves with its rounding: the body compiled
             # alone stops between the port's count and the while's
-            assert tc <= len(trace) <= jc, (label, s, j_counts, t_counts, len(trace))
-            margins = [float(np.abs(gain[active]).max()) for active, gain in trace[tc - 1:]]
-            assert max(margins) <= GAIN_TOL_FTOL, (label, s, j_counts, t_counts, margins)
-            parted.append((label, s, jc, tc, len(trace), max(margins)))
-    print("calls whose counts part (variant, stage, JAX, port, JAX body alone, "
+            assert tc <= len(trace) <= jc, (variant, s, j_counts, t_counts, len(trace))
+            margins = [float(np.abs(gain[active]).max())
+                       for active, gain in trace[tc - 1:]]
+            assert max(margins) <= GAIN_TOL_FTOL, (variant, s, j_counts, t_counts, margins)
+            parted.append((s, jc, tc, len(trace), max(margins)))
+    assert counts
+    print(f"{variant}: calls whose counts part (stage, JAX, port, JAX body alone, "
           "largest |gain| / (ftol cost) from the port's last iteration):", parted)
     # the port's own study counts what the port's warm solves count
-    for label, counts in by_label.items():
-        assert [c for _, c in outs[label]] == counts, label
-
+    assert [c for _, c in ik_study["outs"][variant]] == counts, variant

@@ -32,6 +32,7 @@ from multiview_motion_capture_tpu import tracker as JT
 from multiview_motion_capture_tpu.config import SHELF_BENCH as J_CFG
 from multiview_motion_capture_tpu.data.ingest import filter_bad_poses as j_filter
 from multiview_motion_capture_tpu.data.synthetic import synthetic_sequence as j_synth
+from tests.torch_study_scene import one_thread
 
 DECISIONS = ("track_id", "active", "updated", "spawned", "died_track_id", "matched_pose")
 POSE_TOL_M = 1e-3
@@ -40,12 +41,13 @@ SIM_TOL = 1e-5
 N_FRAMES = 8
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _state_arrays(state):
@@ -56,7 +58,6 @@ def _state_arrays(state):
 def runs():
     """Both packages over synthetic_sequence(8 frames, 3 people, 4 views,
     seed 1), built once for the module (the JAX side compiles its scan)."""
-    torch.set_num_threads(1)
     jc = dataclasses.replace(J_CFG, n_views=4, max_frames=None)
     tc = dataclasses.replace(T_CFG, n_views=4, max_frames=None)
     kw = dict(n_frames=N_FRAMES, n_people=3, n_views=4, seed=1)
@@ -235,7 +236,6 @@ def tri_refs():
     (`motion_gain=1.0`: the constant-velocity gate and the root-velocity
     EMA), or (`ik_max_views=2`) each track's two best views with per-track
     cameras."""
-    torch.set_num_threads(1)
     refs = {}
     for case, (max_views, gain) in TRI_CASES.items():
         over = dict(n_views=4, max_frames=None, ik_max_views=max_views, motion_gain=gain)

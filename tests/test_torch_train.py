@@ -57,6 +57,7 @@ from multiview_motion_capture_tpu.data.render import RenderConfig as JRender
 from multiview_motion_capture_tpu.models import checkpoint as j_ckpt
 from multiview_motion_capture_tpu.models import pose_net as J
 from multiview_motion_capture_tpu.utils import testcache as j_cache
+from tests.torch_study_scene import one_thread
 
 SMALL = dict(img_hw=(64, 48), stage_features=(64, 64, 128), blocks_per_stage=1,
              head_features=64)
@@ -71,6 +72,15 @@ ADAM_LOSS_RTOL = 1e-5
 ADAM_PARAM_TOL_LR = 0.05   # learning rates, after 3 steps
 ADAM_AT_EPS_TOL_LR = 2.0
 GRAD_AT_EPS = 1e-6         # 100 x Adam's eps
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One thread for torch and the BLAS and OpenMP pools, at a lower CPU
+    priority: the suite runs several workers at once
+    (tests/torch_study_scene.one_thread)."""
+    with one_thread():
+        yield
 
 
 def _np(t):
