@@ -33,6 +33,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+from multiview_motion_capture_torch.utils.profiling import span
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -108,17 +110,19 @@ class CudaLibrary:
         os.replace(tmp, out)
 
     def lib(self) -> ctypes.CDLL:
-        """The loaded library, built first if needed."""
+        """The loaded library, built first if needed (the span
+        `setup.kernels`)."""
         with self._lock:
             if self._lib is None:
-                pending = self._start_build()
-                if pending is not None:
-                    self._finish_build(pending)
-                lib = ctypes.CDLL(str(self.library_path()))
-                for fn, (restype, argtypes) in self.signatures.items():
-                    getattr(lib, fn).restype = restype
-                    getattr(lib, fn).argtypes = argtypes
-                self._lib = lib
+                with span("setup.kernels"):
+                    pending = self._start_build()
+                    if pending is not None:
+                        self._finish_build(pending)
+                    lib = ctypes.CDLL(str(self.library_path()))
+                    for fn, (restype, argtypes) in self.signatures.items():
+                        getattr(lib, fn).restype = restype
+                        getattr(lib, fn).argtypes = argtypes
+                    self._lib = lib
             return self._lib
 
 

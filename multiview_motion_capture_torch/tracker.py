@@ -72,6 +72,7 @@ from multiview_motion_capture_torch.utils.precision import (
     high_precision,
     resolve_device,
 )
+from multiview_motion_capture_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -241,33 +242,34 @@ class TrackerContext:
         (`parallel.mesh.Mesh`es, each sharding on the named axis) spread
         the camera-sharded similarity, the cluster ALS and the per-slot LM
         over their devices."""
-        dev = resolve_device(device)
-        _check_config(cfg)
-        if cams.n_views != cfg.n_views:
-            raise ValueError(f"cams has {cams.n_views} views, cfg.n_views={cfg.n_views}")
-        high_precision()
-        # host float64 from the f32 calibration, as the JAX context does
-        K = cams.K.cpu().numpy().astype(np.float64)
-        Rt = cams.Rt.cpu().numpy().astype(np.float64)
-        P = cams.P.cpu().numpy().astype(np.float64)
-        group_sizes = (cfg.max_tracks,) + (cfg.max_people,) * cfg.n_views
-        consts = dict(
-            F_spatial=pairwise_fundamental_np(K, Rt),
-            F_det=pairwise_fundamental_det_np(P),
-            K_inv=np.linalg.inv(K),
-            diag_mask=assoc.block_diag_mask(group_sizes),
-            init_A=assoc.default_init_factor(cfg.n_matrix, cfg.als_max_rank),
-        )
-        if cfg.assoc_clusters > 1:
-            Vc, _ = cluster_layout(cfg)
-            nc = cfg.max_tracks + Vc * cfg.max_people
-            consts["cluster_diag_mask"] = assoc.block_diag_mask(
-                (cfg.max_tracks,) + (cfg.max_people,) * Vc)
-            consts["cluster_init_A"] = assoc.default_init_factor(nc, cfg.als_max_rank)
-        ctx = context_constants_from_numpy(cfg, cams, consts, use_ik=use_ik, device=dev)
-        return ctx.with_meshes(mesh=mesh, mesh_axis=mesh_axis, cluster_mesh=cluster_mesh,
-                               cluster_mesh_axis=cluster_mesh_axis, ik_mesh=ik_mesh,
-                               ik_mesh_axis=ik_mesh_axis)
+        with span("setup.context"):
+            dev = resolve_device(device)
+            _check_config(cfg)
+            if cams.n_views != cfg.n_views:
+                raise ValueError(f"cams has {cams.n_views} views, cfg.n_views={cfg.n_views}")
+            high_precision()
+            # host float64 from the f32 calibration, as the JAX context does
+            K = cams.K.cpu().numpy().astype(np.float64)
+            Rt = cams.Rt.cpu().numpy().astype(np.float64)
+            P = cams.P.cpu().numpy().astype(np.float64)
+            group_sizes = (cfg.max_tracks,) + (cfg.max_people,) * cfg.n_views
+            consts = dict(
+                F_spatial=pairwise_fundamental_np(K, Rt),
+                F_det=pairwise_fundamental_det_np(P),
+                K_inv=np.linalg.inv(K),
+                diag_mask=assoc.block_diag_mask(group_sizes),
+                init_A=assoc.default_init_factor(cfg.n_matrix, cfg.als_max_rank),
+            )
+            if cfg.assoc_clusters > 1:
+                Vc, _ = cluster_layout(cfg)
+                nc = cfg.max_tracks + Vc * cfg.max_people
+                consts["cluster_diag_mask"] = assoc.block_diag_mask(
+                    (cfg.max_tracks,) + (cfg.max_people,) * Vc)
+                consts["cluster_init_A"] = assoc.default_init_factor(nc, cfg.als_max_rank)
+            ctx = context_constants_from_numpy(cfg, cams, consts, use_ik=use_ik, device=dev)
+            return ctx.with_meshes(mesh=mesh, mesh_axis=mesh_axis, cluster_mesh=cluster_mesh,
+                                   cluster_mesh_axis=cluster_mesh_axis, ik_mesh=ik_mesh,
+                                   ik_mesh_axis=ik_mesh_axis)
 
     def with_meshes(self, mesh=None, mesh_axis: str = "dp", cluster_mesh=None,
                     cluster_mesh_axis: str = "cl", ik_mesh=None,
@@ -694,18 +696,20 @@ def associate(ctx: TrackerContext, state: TrackerState, kps: Tensor,
     if ctx.cfg.assoc_clusters > 1:
         return _clustered_association(ctx, state, kps, det_valid, app)
     cfg = ctx.cfg
-    any_alive = (state.active > 0).any()
-    gain = None if app is None else _appearance_gain(cfg, state)
-    sim_st, ev_st, d23 = _spatial_time_similarity(ctx, state, kps, det_valid,
-                                                  app=app, app_gain=gain)
-    sim_sp, ev_sp = _spatial_similarity(ctx, kps, det_valid, app=app, app_gain=gain)
-    sim = torch.where(any_alive, sim_st, sim_sp)
-    elem_valid = torch.where(any_alive, ev_st, ev_sp)
-    als = als_kernel.match_als(
-        sim.contiguous(), ctx.diag_mask, ctx.init_A,
-        alpha=cfg.als_alpha, beta=cfg.als_beta, mu0=cfg.als_mu,
-        tol=cfg.als_tol, max_iter=cfg.als_max_iter,
-        stable_iters=cfg.als_stable_iters)
+    with span("step.similarity"):
+        any_alive = (state.active > 0).any()
+        gain = None if app is None else _appearance_gain(cfg, state)
+        sim_st, ev_st, d23 = _spatial_time_similarity(ctx, state, kps, det_valid,
+                                                      app=app, app_gain=gain)
+        sim_sp, ev_sp = _spatial_similarity(ctx, kps, det_valid, app=app, app_gain=gain)
+        sim = torch.where(any_alive, sim_st, sim_sp)
+        elem_valid = torch.where(any_alive, ev_st, ev_sp)
+    with span("step.als"):
+        als = als_kernel.match_als(
+            sim.contiguous(), ctx.diag_mask, ctx.init_A,
+            alpha=cfg.als_alpha, beta=cfg.als_beta, mu0=cfg.als_mu,
+            tol=cfg.als_tol, max_iter=cfg.als_max_iter,
+            stable_iters=cfg.als_stable_iters)
     return Association(x_bin=als.x_bin, n_iters=als.n_iters, elem_valid=elem_valid,
                        d23=d23, any_alive=any_alive)
 
@@ -734,80 +738,83 @@ def _clustered_association(ctx: TrackerContext, state: TrackerState, kps: Tensor
     dev = kps.device
     i32 = torch.int32
 
-    any_alive = (state.active > 0).any()
-    dv_flat = det_valid.reshape(-1)
-    ev_st = torch.cat([state.active > 0, dv_flat])
-    ev_sp = torch.cat([torch.zeros(T, dtype=torch.bool, device=dev), dv_flat])
-    elem_valid = torch.where(any_alive, ev_st, ev_sp)
-    d23 = _track_det_distances(ctx, state, kps, det_valid).to(kps.dtype)
-    gain = None if app is None else _appearance_gain(cfg, state)
+    with span("step.similarity"):
+        any_alive = (state.active > 0).any()
+        dv_flat = det_valid.reshape(-1)
+        ev_st = torch.cat([state.active > 0, dv_flat])
+        ev_sp = torch.cat([torch.zeros(T, dtype=torch.bool, device=dev), dv_flat])
+        elem_valid = torch.where(any_alive, ev_st, ev_sp)
+        d23 = _track_det_distances(ctx, state, kps, det_valid).to(kps.dtype)
+        gain = None if app is None else _appearance_gain(cfg, state)
 
-    subs = []
-    for cl in ctx.clusters:
-        sim_st, _, _ = _spatial_time_similarity(ctx, state, kps, det_valid,
-                                                view_idx=cl.views, view_valid=cl.view_valid,
-                                                app=app, app_gain=gain)
-        sim_sp, _ = _spatial_similarity(ctx, kps, det_valid,
-                                        view_idx=cl.views, view_valid=cl.view_valid,
-                                        app=app, app_gain=gain)
-        subs.append(torch.where(any_alive, sim_st, sim_sp))
-    als_kw = dict(alpha=cfg.als_alpha, beta=cfg.als_beta, mu0=cfg.als_mu,
-                  tol=cfg.als_tol, max_iter=cfg.als_max_iter,
-                  stable_iters=cfg.als_stable_iters)
-    if ctx.cluster_mesh is not None:
-        # clusters -> devices: one B3 launch per device on its clusters,
-        # each problem's result that of its solo solve
-        xb, n_iters = sharded_cluster_als(
-            torch.stack(subs), ctx.mesh_consts["cluster_diag_mask"],
-            ctx.mesh_consts["cluster_init_A"], ctx.cluster_mesh, ctx.cluster_mesh_axis,
-            **als_kw)
-    else:
-        als = als_kernel.match_als_batched(torch.stack(subs), ctx.cluster_diag_mask,
-                                           ctx.cluster_init_A, **als_kw)
-        xb, n_iters = als.x_bin, als.n_iters                   # (C, Nc, Nc), (C,)
+        subs = []
+        for cl in ctx.clusters:
+            sim_st, _, _ = _spatial_time_similarity(ctx, state, kps, det_valid,
+                                                    view_idx=cl.views, view_valid=cl.view_valid,
+                                                    app=app, app_gain=gain)
+            sim_sp, _ = _spatial_similarity(ctx, kps, det_valid,
+                                            view_idx=cl.views, view_valid=cl.view_valid,
+                                            app=app, app_gain=gain)
+            subs.append(torch.where(any_alive, sim_st, sim_sp))
+    with span("step.als"):
+        als_kw = dict(alpha=cfg.als_alpha, beta=cfg.als_beta, mu0=cfg.als_mu,
+                      tol=cfg.als_tol, max_iter=cfg.als_max_iter,
+                      stable_iters=cfg.als_stable_iters)
+        if ctx.cluster_mesh is not None:
+            # clusters -> devices: one B3 launch per device on its clusters,
+            # each problem's result that of its solo solve
+            xb, n_iters = sharded_cluster_als(
+                torch.stack(subs), ctx.mesh_consts["cluster_diag_mask"],
+                ctx.mesh_consts["cluster_init_A"], ctx.cluster_mesh, ctx.cluster_mesh_axis,
+                **als_kw)
+        else:
+            als = als_kernel.match_als_batched(torch.stack(subs), ctx.cluster_diag_mask,
+                                               ctx.cluster_init_A, **als_kw)
+            xb, n_iters = als.x_bin, als.n_iters                   # (C, Nc, Nc), (C,)
 
-    # scatter: cluster c's detections are the strided views c::C of the
-    # (V, P) grid; the pad views (if any) sit at the end and are dropped.
-    # Blocks are disjoint except the track-track corner, which ORs.
-    x_tt = xb[:, :T, :T].any(dim=0)
-    x_td = torch.zeros((T, V, P), dtype=torch.bool, device=dev)
-    x_dd = torch.zeros((V, P, V, P), dtype=torch.bool, device=dev)
-    for c, cl in enumerate(ctx.clusters):
-        n = cl.n_real
-        x_td[:, c::C] = xb[c, :T, T:].reshape(T, Vc, P)[:, :n]
-        x_dd[c::C, :, c::C] = xb[c, T:, T:].reshape(Vc, P, Vc, P)[:n, :, :n]
-    x_td = x_td.reshape(T, V * P)
-    x_global = torch.cat([torch.cat([x_tt, x_td], dim=1),
-                          torch.cat([x_td.T, x_dd.reshape(V * P, V * P)], dim=1)], dim=0)
+    with span("step.merge"):
+        # scatter: cluster c's detections are the strided views c::C of the
+        # (V, P) grid; the pad views (if any) sit at the end and are dropped.
+        # Blocks are disjoint except the track-track corner, which ORs.
+        x_tt = xb[:, :T, :T].any(dim=0)
+        x_td = torch.zeros((T, V, P), dtype=torch.bool, device=dev)
+        x_dd = torch.zeros((V, P, V, P), dtype=torch.bool, device=dev)
+        for c, cl in enumerate(ctx.clusters):
+            n = cl.n_real
+            x_td[:, c::C] = xb[c, :T, T:].reshape(T, Vc, P)[:, :n]
+            x_dd[c::C, :, c::C] = xb[c, T:, T:].reshape(Vc, P, Vc, P)[:n, :, :n]
+        x_td = x_td.reshape(T, V * P)
+        x_global = torch.cat([torch.cat([x_tt, x_td], dim=1),
+                              torch.cat([x_td.T, x_dd.reshape(V * P, V * P)], dim=1)], dim=0)
 
-    # cross-cluster merge of new-person groups: per candidate leader, its
-    # first member in each view; the per-detection mean keypoint (computed
-    # once) triangulates to one 3D centroid per candidate
-    g0 = assoc.extract_groups(x_global, elem_valid)
-    rep_det, member_det = g0.rep[T:], g0.member[T:]
-    e_global = torch.arange(T, N, dtype=i32, device=dev)
-    kps_w = kps.to(WORK_DTYPE)
-    w_all = kps[..., 2] > cfg.epipolar_min_kps_score              # (V, P, K)
-    cnt_all = w_all.sum(dim=-1).clamp(min=1)
-    mean_uv = (kps_w[..., :2] * w_all[..., None]).sum(dim=2) / cnt_all[..., None]  # (V, P, 2)
-    cand = (member_det.reshape(V, P)[None]
-            & (rep_det.reshape(V, P)[None] == e_global[:, None, None]))  # (VP, V, P)
-    exists = cand.any(dim=-1)                                     # (VP, V)
-    first = cand.to(i32).argmax(dim=-1)                           # (VP, V)
-    uv = mean_uv[torch.arange(V, device=dev)[None, :], first]     # (VP, V, 2)
-    point_obs = torch.cat([uv, exists.to(WORK_DTYPE)[..., None]], dim=-1)[:, :, None, :]
-    tri = triangulate_points(ctx.cams.P.to(WORK_DTYPE), ctx.K_inv.to(WORK_DTYPE),
-                             point_obs, exists, 0.5, 0)
-    cents = tri[:, 0, :3]                                         # (VP, 3)
-    # leaders of detection-only groups with >= 2 views (groups holding a
-    # track merge through the track)
-    ok = ((rep_det == e_global) & member_det & (rep_det >= T)
-          & (exists.sum(dim=1) >= 2))
-    cents = torch.where(ok[:, None], cents, torch.full_like(cents, 1e6))
-    d = torch.linalg.vector_norm(cents[:, None] - cents[None, :], dim=-1)
-    cross = ctx.cluster_of_slot[:, None] != ctx.cluster_of_slot[None, :]
-    link = (d < cfg.cluster_merge_m) & cross & ok[:, None] & ok[None, :]
-    x_global[T:, T:] |= link
+        # cross-cluster merge of new-person groups: per candidate leader, its
+        # first member in each view; the per-detection mean keypoint (computed
+        # once) triangulates to one 3D centroid per candidate
+        g0 = assoc.extract_groups(x_global, elem_valid)
+        rep_det, member_det = g0.rep[T:], g0.member[T:]
+        e_global = torch.arange(T, N, dtype=i32, device=dev)
+        kps_w = kps.to(WORK_DTYPE)
+        w_all = kps[..., 2] > cfg.epipolar_min_kps_score              # (V, P, K)
+        cnt_all = w_all.sum(dim=-1).clamp(min=1)
+        mean_uv = (kps_w[..., :2] * w_all[..., None]).sum(dim=2) / cnt_all[..., None]  # (V, P, 2)
+        cand = (member_det.reshape(V, P)[None]
+                & (rep_det.reshape(V, P)[None] == e_global[:, None, None]))  # (VP, V, P)
+        exists = cand.any(dim=-1)                                     # (VP, V)
+        first = cand.to(i32).argmax(dim=-1)                           # (VP, V)
+        uv = mean_uv[torch.arange(V, device=dev)[None, :], first]     # (VP, V, 2)
+        point_obs = torch.cat([uv, exists.to(WORK_DTYPE)[..., None]], dim=-1)[:, :, None, :]
+        tri = triangulate_points(ctx.cams.P.to(WORK_DTYPE), ctx.K_inv.to(WORK_DTYPE),
+                                 point_obs, exists, 0.5, 0)
+        cents = tri[:, 0, :3]                                         # (VP, 3)
+        # leaders of detection-only groups with >= 2 views (groups holding a
+        # track merge through the track)
+        ok = ((rep_det == e_global) & member_det & (rep_det >= T)
+              & (exists.sum(dim=1) >= 2))
+        cents = torch.where(ok[:, None], cents, torch.full_like(cents, 1e6))
+        d = torch.linalg.vector_norm(cents[:, None] - cents[None, :], dim=-1)
+        cross = ctx.cluster_of_slot[:, None] != ctx.cluster_of_slot[None, :]
+        link = (d < cfg.cluster_merge_m) & cross & ok[:, None] & ok[None, :]
+        x_global[T:, T:] |= link
     return Association(x_bin=x_global, n_iters=n_iters.sum(dtype=i32),
                        elem_valid=elem_valid, d23=d23, any_alive=any_alive)
 
@@ -943,7 +950,8 @@ def make_update(ctx: TrackerContext):
                app: Optional[Tensor] = None):
         tsu = state.time_since_update
         d23, any_alive = a.d23, a.any_alive
-        groups = assoc.extract_groups(a.x_bin, a.elem_valid)
+        with span("step.groups"):
+            groups = assoc.extract_groups(a.x_bin, a.elem_valid)
         rep, member, group_size = groups.rep, groups.member, groups.group_size
 
         # 4. per-slot / per-leader matched detections
@@ -1064,78 +1072,79 @@ def make_update(ctx: TrackerContext):
         s_exists = spawned[:, None] & (s_match >= 0)
 
         # 7. batched IK, or triangulation
-        upd_obs, upd_w = _gather_obs(kps, t_match, t_exists)
-        upd_w = upd_w * update_mask[:, None].to(upd_w.dtype)
-        new_obs, new_w = _gather_obs(kps, s_match, s_exists)
-        new_w = new_w * spawned[:, None].to(new_w.dtype)
-        any_update, any_spawn = torch.stack([update_mask.any(), spawned.any()]).tolist()
-        if top_k:
-            # wide rigs: each track's LM solve (or refined triangulation)
-            # sees only its k highest-score matched views, with per-slot
-            # cameras; the spawns' triangulation keeps all views
-            upd_obs_k, upd_w_k, upd_views = _top_views(upd_obs, upd_w, top_k)
-            new_obs_k, new_w_k, new_views = _top_views(new_obs, new_w, top_k)
-            P_upd, P_new = ctx.cams.P[upd_views], ctx.cams.P[new_views]
-            # only the refined triangulation reads the inverse intrinsics
-            Kinv_upd = None if ctx.use_ik else ctx.K_inv[upd_views]
-        else:
-            upd_obs_k, upd_w_k, P_upd, Kinv_upd = upd_obs, upd_w, ctx.cams.P, ctx.K_inv
-            new_obs_k, new_w_k, P_new = new_obs, new_w, ctx.cams.P
-        sel_u, sel_s = update_mask, spawned
-
-        def pick(cold, warm, old):
-            shape = (T,) + (1,) * (old.dim() - 1)
-            return torch.where(sel_s.view(shape), cold,
-                               torch.where(sel_u.view(shape), warm, old))
-
-        if ctx.use_ik:
-            state_params = ik_ops.IkParams(state.root, state.euler, state.side_lens)
-            if any_update:
-                warm_params, warm_joints = solve_fn(
-                    state_params, solve_skel, upd_obs_k, upd_w_k, P_upd,
-                    n_iters=cfg.ik_warm_iters, stages=cfg.ik_warm_stages, **lm_kw)
+        with span("step.pose"):
+            upd_obs, upd_w = _gather_obs(kps, t_match, t_exists)
+            upd_w = upd_w * update_mask[:, None].to(upd_w.dtype)
+            new_obs, new_w = _gather_obs(kps, s_match, s_exists)
+            new_w = new_w * spawned[:, None].to(new_w.dtype)
+            any_update, any_spawn = torch.stack([update_mask.any(), spawned.any()]).tolist()
+            if top_k:
+                # wide rigs: each track's LM solve (or refined triangulation)
+                # sees only its k highest-score matched views, with per-slot
+                # cameras; the spawns' triangulation keeps all views
+                upd_obs_k, upd_w_k, upd_views = _top_views(upd_obs, upd_w, top_k)
+                new_obs_k, new_w_k, new_views = _top_views(new_obs, new_w, top_k)
+                P_upd, P_new = ctx.cams.P[upd_views], ctx.cams.P[new_views]
+                # only the refined triangulation reads the inverse intrinsics
+                Kinv_upd = None if ctx.use_ik else ctx.K_inv[upd_views]
             else:
-                warm_params, warm_joints = state_params, state.pose3d
-            if any_spawn:
-                # cold init: root = hip midpoint of the triangulation
-                # (ref:src/inverse_kinematics.py:389-397), geometric angle
-                # init (both in WORK_DTYPE, rounded once)
-                tri = cold_triangulation(new_obs, new_w)
-                cold_roots = (0.5 * (tri[:, _LHIP, :3] + tri[:, _RHIP, :3])).to(kps.dtype)
-                cold_euler = ik_ops.geometric_init(tri, skel.to(wd)).to(kps.dtype)
-                init = ik_ops.IkParams(root=cold_roots, euler=cold_euler,
-                                       side_lens=skel.side_bone_lens.expand(T, -1))
-                cold_params, cold_joints = solve_fn(
-                    init, solve_skel, new_obs_k, new_w_k, P_new,
-                    n_iters=cfg.ik_cold_iters, stages=cfg.ik_cold_stages, **lm_kw)
+                upd_obs_k, upd_w_k, P_upd, Kinv_upd = upd_obs, upd_w, ctx.cams.P, ctx.K_inv
+                new_obs_k, new_w_k, P_new = new_obs, new_w, ctx.cams.P
+            sel_u, sel_s = update_mask, spawned
+
+            def pick(cold, warm, old):
+                shape = (T,) + (1,) * (old.dim() - 1)
+                return torch.where(sel_s.view(shape), cold,
+                                   torch.where(sel_u.view(shape), warm, old))
+
+            if ctx.use_ik:
+                state_params = ik_ops.IkParams(state.root, state.euler, state.side_lens)
+                if any_update:
+                    warm_params, warm_joints = solve_fn(
+                        state_params, solve_skel, upd_obs_k, upd_w_k, P_upd,
+                        n_iters=cfg.ik_warm_iters, stages=cfg.ik_warm_stages, **lm_kw)
+                else:
+                    warm_params, warm_joints = state_params, state.pose3d
+                if any_spawn:
+                    # cold init: root = hip midpoint of the triangulation
+                    # (ref:src/inverse_kinematics.py:389-397), geometric angle
+                    # init (both in WORK_DTYPE, rounded once)
+                    tri = cold_triangulation(new_obs, new_w)
+                    cold_roots = (0.5 * (tri[:, _LHIP, :3] + tri[:, _RHIP, :3])).to(kps.dtype)
+                    cold_euler = ik_ops.geometric_init(tri, skel.to(wd)).to(kps.dtype)
+                    init = ik_ops.IkParams(root=cold_roots, euler=cold_euler,
+                                           side_lens=skel.side_bone_lens.expand(T, -1))
+                    cold_params, cold_joints = solve_fn(
+                        init, solve_skel, new_obs_k, new_w_k, P_new,
+                        n_iters=cfg.ik_cold_iters, stages=cfg.ik_cold_stages, **lm_kw)
+                else:
+                    cold_params, cold_joints = state_params, state.pose3d
+                new_root = pick(cold_params.root, warm_params.root, state.root)
+                new_euler = pick(cold_params.euler, warm_params.euler, state.euler)
+                new_side = pick(cold_params.side_lens, warm_params.side_lens, state.side_lens)
+                new_pose3d = pick(cold_joints, warm_joints, state.pose3d)
+                new_score = torch.where((sel_s | sel_u)[:, None],
+                                        torch.ones_like(state.pose3d_score), state.pose3d_score)
             else:
-                cold_params, cold_joints = state_params, state.pose3d
-            new_root = pick(cold_params.root, warm_params.root, state.root)
-            new_euler = pick(cold_params.euler, warm_params.euler, state.euler)
-            new_side = pick(cold_params.side_lens, warm_params.side_lens, state.side_lens)
-            new_pose3d = pick(cold_joints, warm_joints, state.pose3d)
-            new_score = torch.where((sel_s | sel_u)[:, None],
-                                    torch.ones_like(state.pose3d_score), state.pose3d_score)
-        else:
-            # triangulation mode (tracker.py:1141-1168 of the JAX package):
-            # updates triangulate their capped views, spawns all their views;
-            # the pose is COCO order plus the mid-spine, the root the hips'
-            # midpoint, angles and side lengths stay
-            keep = torch.cat([state.pose3d, state.pose3d_score[..., None]], dim=-1)
-            tri_upd = tri_new = keep
-            if any_update:
-                tri_upd = triangulate_points(
-                    P_upd.to(wd), Kinv_upd.to(wd), ik_ops.add_mid_spine(upd_obs_k).to(wd),
-                    upd_w_k > 0, cfg.triangulate_min_score,
-                    cfg.triangulate_refine_iters).to(kps.dtype)
-            if any_spawn:
-                tri_new = cold_triangulation(new_obs, new_w).to(kps.dtype)
-            tri = pick(tri_new, tri_upd, keep)
-            new_pose3d, new_score = tri[..., :3], tri[..., 3]
-            new_root = torch.where((sel_s | sel_u)[:, None],
-                                   0.5 * (new_pose3d[:, _LHIP] + new_pose3d[:, _RHIP]),
-                                   state.root)
-            new_euler, new_side = state.euler, state.side_lens
+                # triangulation mode (tracker.py:1141-1168 of the JAX package):
+                # updates triangulate their capped views, spawns all their views;
+                # the pose is COCO order plus the mid-spine, the root the hips'
+                # midpoint, angles and side lengths stay
+                keep = torch.cat([state.pose3d, state.pose3d_score[..., None]], dim=-1)
+                tri_upd = tri_new = keep
+                if any_update:
+                    tri_upd = triangulate_points(
+                        P_upd.to(wd), Kinv_upd.to(wd), ik_ops.add_mid_spine(upd_obs_k).to(wd),
+                        upd_w_k > 0, cfg.triangulate_min_score,
+                        cfg.triangulate_refine_iters).to(kps.dtype)
+                if any_spawn:
+                    tri_new = cold_triangulation(new_obs, new_w).to(kps.dtype)
+                tri = pick(tri_new, tri_upd, keep)
+                new_pose3d, new_score = tri[..., :3], tri[..., 3]
+                new_root = torch.where((sel_s | sel_u)[:, None],
+                                       0.5 * (new_pose3d[:, _LHIP] + new_pose3d[:, _RHIP]),
+                                       state.root)
+                new_euler, new_side = state.euler, state.side_lens
 
         # 7b. association-gate velocity (cfg.motion_gain): EMA of the
         # per-update root delta; fresh spawns start at rest
@@ -1214,8 +1223,11 @@ def make_step(ctx: TrackerContext):
             raise ValueError("cfg.appearance_dim > 0: each frame needs app=(V, P, D) "
                              "detection appearance embeddings")
         app = app if use_app else None
-        state = predict(state)
-        return update(state, kps, det_valid, associate(ctx, state, kps, det_valid, app), app)
+        with span("step", frame=True):
+            state = predict(state)
+            a = associate(ctx, state, kps, det_valid, app)
+            with span("step.update"):
+                return update(state, kps, det_valid, a, app)
 
     return step
 
@@ -1256,17 +1268,18 @@ def run_offline(ctx: TrackerContext, kps, valid, frame_idxs=None, app=None, *,
     parameter), so a call written for it runs here unchanged; `state` is
     keyword-only.  Returns the last state and the stacked per-frame
     outputs (F, ...) on the device."""
-    kps, valid, app = _frames_to_device(ctx, kps, valid, app)
-    if state is None:
-        state = TrackerState.zeros(ctx.cfg, device=ctx.device)
-    step = make_step(ctx)
-    outs = []
-    for f in range(kps.shape[0]):
-        state, out = step(state, kps[f], valid[f], None if app is None else app[f])
-        outs.append(out)
-    if not outs:
-        raise ValueError("run_offline needs at least one frame")
-    return state, stack_outputs(outs)
+    with span("offline.chunk"):
+        kps, valid, app = _frames_to_device(ctx, kps, valid, app)
+        if state is None:
+            state = TrackerState.zeros(ctx.cfg, device=ctx.device)
+        step = make_step(ctx)
+        outs = []
+        for f in range(kps.shape[0]):
+            state, out = step(state, kps[f], valid[f], None if app is None else app[f])
+            outs.append(out)
+        if not outs:
+            raise ValueError("run_offline needs at least one frame")
+        return state, stack_outputs(outs)
 
 
 class MvTracker:
@@ -1289,11 +1302,14 @@ class MvTracker:
     def update(self, frame_idx: int, kps, valid, app=None) -> FrameOutput:
         """Track one frame: kps (V, P, K, 3), valid (V, P), app (V, P, D)
         when `cfg.appearance_dim > 0`.  Returns its output on the host."""
-        kps, valid, app = _frames_to_device(self.ctx, kps, valid, app)
-        self.state, out = self._step(self.state, kps, valid, app)
-        self.outputs.append(outputs_to_numpy(out))
-        self.frame_idxs.append(int(frame_idx))
-        return self.outputs[-1]
+        with span("online.frame"):
+            with span("online.input"):
+                kps, valid, app = _frames_to_device(self.ctx, kps, valid, app)
+            self.state, out = self._step(self.state, kps, valid, app)
+            with span("online.output"):
+                self.outputs.append(outputs_to_numpy(out))
+            self.frame_idxs.append(int(frame_idx))
+            return self.outputs[-1]
 
     def update_batch(self, frame_idxs, kps, valid, pad_to: Optional[int] = None,
                      app=None) -> List[FrameOutput]:
