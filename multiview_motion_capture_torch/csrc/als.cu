@@ -37,7 +37,7 @@
 //
 // Design.
 // - Cluster shape, from (n, rank) alone (als_launch_shape): a cluster of one
-//   block where the whole state fits one SM's shared memory (n <= 103 at
+//   block where the whole state fits one SM's shared memory (n <= 106 at
 //   rank 32; SHELF_BENCH's n = 38), else a cluster of 16 blocks on 16 SMs
 //   (the wide rig's n = 336, up to MAX_N = 384 at rank 32).  A cluster of 8
 //   would need twice the strip space, which does not fit.  A launch that
@@ -46,23 +46,40 @@
 //   next X (which first holds the X step), Z and Y, and the same rows of A
 //   (its output of the A^T solve).  Each block keeps a full copy F (rank x
 //   n) of the factor it reads, gathered from its peers' strips.
-// - Per iteration: the X step on the own strip; [A^T A | A^T Xs(:, strip)]
-//   and its ridge solve give the B^T strip; cluster barrier; each block
-//   gathers B^T and the X step's rows of its own row strip (transposed,
-//   into Z's space, which is dead until the projection) from its peers;
-//   [B^T B | B^T Xs(strip, :)^T] and its ridge solve give the A^T strip;
-//   barrier; each block gathers A^T; X = A B^T on the own strip, fused with
-//   the projection, the Y update and the residual partials; barrier; every
-//   block sums the S partials in block order, so all take the same loop
-//   exit.  Three cluster barriers per iteration.
-// - The ridge solves are a no-pivot Gauss-Jordan (SPD plus a ridge needs
-//   none) run by warps without block barriers: a lane holds one column of
-//   [G + lam I | R] in registers, every warp carries its own copy of the
-//   rank x rank left block and 32 right-hand columns, and each pivot column
-//   is broadcast with __shfl_sync.  A column's update reads only itself and
-//   the pivot column, and every copy of the left block evolves identically,
-//   so the result equals the whole-block elimination bit for bit.  Rank <=
-//   32 (a lane per left column); the wrapper raises above that.
+// - Each half of an iteration solves [F F^T + lam I | F M] for one factor
+//   strip (F = A^T with M the X step's own columns, then F = B^T with M the
+//   X step's own rows, transposed).  The Gram F F^T is symmetric bit for bit
+//   (fmul commutes), so only its upper triangle is formed, and it is dealt
+//   over the cluster: block q sums entries q, q + S, q + 2 S, ... of the
+//   triangle, and every block reads the whole triangle from its peers after
+//   a split cluster barrier (arrive, other work, wait).
+// - The ridge solve is a no-pivot Gauss-Jordan (SPD plus a ridge needs none)
+//   split in two.  Warp 0 eliminates the rank x rank left block alone (lane
+//   c holds column c in registers) and records every pivot column as it
+//   stood before its step, with the pivot's double reciprocal, in shared
+//   memory, publishing each step by a release store of a step count.  The
+//   warps of the other three sub-partitions (the product side; warp w
+//   issues from sub-partition w mod 4, so the elimination's serial chain
+//   shares its issue slots with no one) form the right-hand products F M
+//   in registers, a lane a row, and apply each recorded step as soon as it
+//   is published: a column's update reads only itself and the pivot
+//   column, so this equals the whole elimination bit for bit.  Quotients
+//   are gj_elim.cuh's `quotient` (the double product with the correctly
+//   rounded reciprocal, rounded once: __fdiv_rn's result without its slow
+//   path).  Rank <= 32 (a lane per left column); the wrapper raises above
+//   that.
+// - Per iteration: [the eliminating side sums its Gram share of A^T A,
+//   arrives at a split cluster barrier, gathers the Gram, warp 0
+//   eliminates | the product side arrives, takes the X step and solves its
+//   columns of the B^T strip]; cluster barrier; each block gathers B^T and
+//   the X step's rows of its own row strip (transposed, into Z's space,
+//   which is dead until the projection) from its peers; the same for the
+//   A^T strip with B^T B and the transposed rows; barrier; each block
+//   gathers A^T; X = A B^T on the own strip, fused with the projection, the
+//   Y update and the residual partials; barrier; warp 0 sums the S
+//   partials in block order and hands the totals to the block, so all
+//   blocks take the same loop exit.  Three cluster barriers and two split
+//   ones per iteration.
 // - W and the mask stay in device memory (read once per iteration per
 //   strip, through L1/L2); all other state is in shared memory.
 //
@@ -79,12 +96,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gj_elim.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxRank = 32;
 constexpr int kBigCluster = 16;
+constexpr int kThreads = 512;  // 16 warps: 4 on the eliminating side, 12 on the product side
 constexpr size_t kSmemLimit = 230000;  // of the 232448 B a block may opt into
 
 struct Shape {
@@ -92,7 +112,8 @@ struct Shape {
   int w;          // columns per block
   int ldS;        // row stride of a strip (odd: column walks hit distinct banks)
   int ldF;        // row stride of the full factor copy (odd)
-  int threads;
+  int R;          // lanes per right-hand column: 16 for rank <= 16, else 32
+  int E;          // Gram entries summed per block
   size_t floats;  // dynamic shared memory per block
 };
 
@@ -102,10 +123,13 @@ __host__ __device__ inline Shape make_shape(int n, int r, int S) {
   s.w = (n + S - 1) / S;
   s.ldS = s.w | 1;
   s.ldF = n | 1;
-  s.threads = S == 1 ? 256 : 512;
-  // X, next X, Z, Y strips; F; the B^T and A^T strips; the augmented block
-  s.floats = 4 * static_cast<size_t>(n) * s.ldS + static_cast<size_t>(r) * s.ldF +
-             2 * static_cast<size_t>(r) * s.w + static_cast<size_t>(r) * (r + s.w);
+  s.R = r > 16 ? 32 : 16;
+  s.E = (r * (r + 1) / 2 + S - 1) / S;
+  // the pivots' reciprocals (doubles) and pivot columns; X, next X, Z, Y
+  // strips; F; the B^T and A^T strips; the Gram share
+  s.floats = 2 * static_cast<size_t>(s.R) + static_cast<size_t>(s.R) * s.R +
+             4 * static_cast<size_t>(n) * s.ldS + static_cast<size_t>(r) * s.ldF +
+             2 * static_cast<size_t>(r) * s.w + s.E;
   return s;
 }
 
@@ -180,78 +204,279 @@ __device__ void ordered_product(int K, int ma, int mj, LOp lv, ROp rv, Epi epi) 
   }
 }
 
-// aug (r x (r + m), row stride lda) = [F F^T | F M] for the factor F (r x
-// n, row stride ldF) and the n x m strip M (row stride ldM).
-__device__ void normal_block(const float* F, int ldF, const float* M, int ldM, int n,
-                             int r, int m, float* aug, int lda) {
-  ordered_product<2, 2>(
-      n, r, r + m, [=](int a) { return Vec{F + a * ldF, 1}; },
-      [=](int c) { return c < r ? Vec{F + c * ldF, 1} : Vec{M + (c - r), ldM}; },
-      [=](int a, int c, float v) { aug[a * lda + c] = v; });
+// Entry t of the Gram's upper triangle is (a, b), a <= b, t = b (b + 1) / 2 + a.
+__device__ __forceinline__ int tri_index(int a, int b) { return b * (b + 1) / 2 + a; }
+
+// The row b of the Gram's upper-triangle entry t (tri_index(0, b) <= t <
+// tri_index(0, b + 1)).
+__device__ __forceinline__ int tri_row(int t) {
+  int b = static_cast<int>((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+  if (tri_index(0, b + 1) <= t) ++b;
+  else if (tri_index(0, b) > t) --b;
+  return b;
 }
 
-// aug[a][a] += lam, then no-pivot Gauss-Jordan on [G + lam I | R] (rows r,
-// R's m columns): out (r x m, row stride ldo) = (G + lam I)^-1 R, by warps
-// without a block barrier.  Each warp carries its own copy of the left
-// block (lane c holds column c) and a group of right-hand columns: with
-// kDual (r > 16), every lane also holds one (32 per warp); else lanes
-// r..31 hold one each (32 - r per warp, half the work per lane).  The
+// While a ridge solve's left block is formed and eliminated, the block's
+// warps work on two sides.  Warp w issues from the SM's sub-partition w mod
+// 4; warps 0, 4, 8, ... (the first sub-partition's) sum the block's share of
+// the Gram, then warp 0 eliminates alone there, and the other warps form the
+// right-hand products on the other three sub-partitions, so that the
+// elimination's serial chain shares its issue slots with no one.
+__device__ __forceinline__ bool eliminating_side(int warp) { return (warp & 3) == 0; }
+
+// Index of a product-side warp among the product side's np warps.
+__device__ __forceinline__ int product_warp(int warp) { return warp - (warp >> 2) - 1; }
+
+__device__ __forceinline__ int product_warps(int nw) { return nw - (nw >> 2); }
+
+// This block's share of the Gram F F^T (F: r x n, row stride ldF): gram[u]
+// = entry q + S u of the upper triangle, each summed by one thread of the
+// eliminating side in index order.
+__device__ void gram_share(const float* F, int ldF, int n, int r, int q, int S, int E,
+                           float* gram) {
+  const int count = r * (r + 1) / 2;
+  const int first = (threadIdx.x >> 7) * 32 + (threadIdx.x & 31);
+  for (int u = first; u < E; u += blockDim.x >> 2) {
+    const int t = q + S * u;
+    if (t >= count) break;
+    const int b = tri_row(t);
+    const float* fa = F + (t - tri_index(0, b)) * ldF;
+    const float* fb = F + b * ldF;
+    float s = __fmul_rn(fa[0], fb[0]);
+#pragma unroll 16
+    for (int k = 1; k < n; ++k) s = __fadd_rn(s, __fmul_rn(fa[k], fb[k]));
+    gram[u] = s;
+  }
+}
+
+// The float at the shared-memory address `local` of this block, in the
+// cluster's block `peer`.  A 32-bit address kept out of loop-invariant code
+// motion: the compiler would keep every such address of the Gram's
+// gather live in registers across the whole iteration.
+__device__ __forceinline__ float load_peer(uint32_t local, int peer) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(peer));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(remote));
+  return v;
+}
+
+// The eliminating side: G (r x r, row stride R) = the Gram, mirrored, from
+// the cluster's shares, eight loads in flight a thread.
+__device__ void gather_gram(const float* gram, int S, int r, int R, float* G) {
+  const int first = (threadIdx.x >> 7) * 32 + (threadIdx.x & 31), step = blockDim.x >> 2;
+  const int shift = __ffs(S) - 1, count = r * (r + 1) / 2;
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(gram));
+  for (int t0 = first; t0 < count; t0 += 8 * step) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int t = t0 + j * step;
+      v[j] = t < count ? load_peer(base + 4u * static_cast<uint32_t>(t >> shift), t & (S - 1))
+                       : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int t = t0 + j * step;
+      if (t < count) {
+        const int b = tri_row(t), a = t - tri_index(0, b);
+        G[a * R + b] = v[j];
+        G[b * R + a] = v[j];
+      }
+    }
+  }
+  asm volatile("bar.sync 2, %0;\n" ::"r"(static_cast<int>(blockDim.x) >> 2) : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// Barrier 1 over the product side's warps.
+__device__ __forceinline__ void product_warps_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(product_warps(blockDim.x >> 5) * 32) : "memory");
+}
+
+// The elimination's progress: warp 0's lane 0 publishes the count of steps
+// whose pivot columns and reciprocals are stored by a release store, and
+// the product side reads it with acquire loads.
+__device__ __forceinline__ void publish_steps(unsigned* progress, unsigned count) {
+  asm volatile("st.release.cta.shared.u32 [%0], %1;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(progress))),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned published_steps(const unsigned* progress) {
+  unsigned v;
+  asm volatile("ld.acquire.cta.shared.u32 %0, [%1];"
+               : "=r"(v)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(progress)))
+               : "memory");
+  return v;
+}
+
+// Warp 0: no-pivot Gauss-Jordan on the left block G + lam I (G in pcol, row
+// stride R, from gather_gram), recording for each step k its pivot column
+// as it stood before the step (pcol[k R + j] = row (j + k) mod R) and the
+// pivot's double reciprocal (rcps[k]).  Lane c holds column c.  The
 // registers rotate by one row per pivot, so the pivot row is always at
 // index 0 and the pivot loop need not be unrolled (a short loop body stays
 // in the instruction cache): after step k, index j holds row (j + k + 1)
-// mod R.  Rows r..R-1 are zero and never pivot.
-template <int R, bool kDual>
-__device__ void warp_ridge_gj(const float* aug, int lda, int r, int m, float lam,
-                              float* out, int ldo) {
+// mod R.  Lane k writes its column to pcol and the warp reads it back,
+// broadcast, four rows a load: cheaper on this card than a shuffle a row.
+// Each step forms the next pivot first and takes its reciprocal while the
+// rest of the column updates; it publishes the steps before it (their
+// stores passed a __syncwarp since), so the release never waits on its own
+// step's stores.  Rows and columns r..R-1 are zero and never pivot.
+template <int R>
+__device__ void eliminate_left(int r, float lam, float* pcol, double* rcps, unsigned* progress,
+                               unsigned base) {
   const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  const int per = kDual ? 32 : 32 - r;
-  const int groups = (m + per - 1) / per;
-  for (int g = threadIdx.x >> 5; g < groups; g += nw) {
-    const int col = g * per + (kDual ? lane : lane - r);
-    const bool has_left = lane < r;
-    const bool has_right = (kDual || !has_left) && col < m;
-    float L[R], X[R];  // X: the right-hand column (kDual only)
+  const int lane = threadIdx.x & 31;
+  float L[R];
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      float v = 0.f;
-      if (i < r && has_left)
-        v = i == lane ? __fadd_rn(aug[i * lda + lane], lam) : aug[i * lda + lane];
-      else if (i < r && has_right && !kDual)
-        v = aug[i * lda + r + col];
-      L[i] = v;
-      X[i] = (kDual && has_right && i < r) ? aug[i * lda + r + col] : 0.f;
+  for (int i = 0; i < R; ++i) {
+    const float g = (i < r && lane < r) ? pcol[i * R + lane] : 0.f;
+    L[i] = (i == lane && lane < r) ? __fadd_rn(g, lam) : g;
+  }
+  __syncwarp();
+  double rcp = __drcp_rn(static_cast<double>(__shfl_sync(full, L[0], 0)));
+#pragma unroll 1
+  for (int k = 0; k < r; ++k) {
+    float4* col = reinterpret_cast<float4*>(pcol + k * R);
+    if (lane == k) {
+#pragma unroll
+      for (int j = 0; j < R; j += 4) col[j / 4] = make_float4(L[j], L[j + 1], L[j + 2], L[j + 3]);
+      rcps[k] = rcp;
+    }
+    __syncwarp();
+    if (lane == 0 && k > 0) publish_steps(progress, base + k);
+    float pc[R];  // aug[.][k], before its update
+#pragma unroll
+    for (int j = 0; j < R; j += 4) {
+      const float4 v = col[j / 4];
+      pc[j] = v.x;
+      pc[j + 1] = v.y;
+      pc[j + 2] = v.z;
+      pc[j + 3] = v.w;
+    }
+    const float pl = gj::quotient(L[0], rcp);
+    L[0] = __fsub_rn(L[1], __fmul_rn(pc[1], pl));
+    // the next pivot (past the last step: unused)
+    rcp = __drcp_rn(static_cast<double>(__shfl_sync(full, L[0], (k + 1) & 31)));
+#pragma unroll
+    for (int i = 2; i < R; ++i) L[i - 1] = __fsub_rn(L[i], __fmul_rn(pc[i], pl));
+    L[R - 1] = pl;
+  }
+  __syncwarp();
+  if (lane == 0) publish_steps(progress, base + r);
+}
+
+// The product side's part of a ridge solve: for its groups of TJ columns,
+// out(a, j) = ((G + lam I)^-1 F M)(a, j) (F: r x n, row stride ldF; M: n x
+// m, row stride ldM; out row stride ldo).  A segment of R lanes holds the
+// rows of a group (a lane a row): first the products F M, each summed in
+// index order, in registers; then the elimination's recorded steps, each
+// as soon as warp 0 has published it (steps base + 1 .. base + r of the
+// progress count).  A column's update at step k reads only itself and the
+// pivot column, so this equals the whole elimination bit for bit.
+template <int R, int TJ>
+__device__ void solve_columns(const float* F, int ldF, const float* M, int ldM, int n, int r,
+                              int m, const float* pcol, const double* rcps,
+                              const unsigned* progress, unsigned base, float* out, int ldo) {
+  constexpr int spw = 32 / R;  // segments per warp
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, seg = lane / R, a = lane % R;
+  const int np = product_warps(blockDim.x >> 5), pw = product_warp(threadIdx.x >> 5);
+  const int groups = (m + TJ - 1) / TJ;
+  const float* f = F + min(a, r - 1) * ldF;
+  int ready = 0;  // steps known to be published
+  for (int g = pw * spw + seg; g - seg < groups; g += np * spw) {  // warp-uniform
+    const float* mc[TJ];
+#pragma unroll
+    for (int v = 0; v < TJ; ++v) mc[v] = M + min(g * TJ + v, m - 1);
+    float s[TJ];
+#pragma unroll
+    for (int v = 0; v < TJ; ++v) s[v] = __fmul_rn(f[0], mc[v][0]);
+    // deep enough that the loads run ahead of the sums' chains
+    constexpr int kUnroll = TJ <= 2 ? 16 : (TJ <= 4 ? 8 : 4);
+#pragma unroll kUnroll
+    for (int k = 1; k < n; ++k) {
+      const float fk = f[k];
+#pragma unroll
+      for (int v = 0; v < TJ; ++v) s[v] = __fadd_rn(s[v], __fmul_rn(fk, mc[v][k * ldM]));
     }
 #pragma unroll 1
     for (int k = 0; k < r; ++k) {
-      const float piv = __shfl_sync(full, L[0], k);
-      const float pl = __fdiv_rn(L[0], piv);
-      const float px = kDual ? __fdiv_rn(X[0], piv) : 0.f;
-#pragma unroll
-      for (int i = 1; i < R; ++i) {
-        const float pc = __shfl_sync(full, L[i], k);  // aug[.][k], before its update
-        L[i - 1] = __fsub_rn(L[i], __fmul_rn(pc, pl));
-        if (kDual) X[i - 1] = __fsub_rn(X[i], __fmul_rn(pc, px));
+      while (k >= ready) {
+        ready = static_cast<int>(published_steps(progress) - base);
+        if (k >= ready) __nanosleep(32);
       }
-      L[R - 1] = pl;
-      if (kDual) X[R - 1] = px;
+      const float pc = pcol[k * R + ((a - k) & (R - 1))];  // aug[a][k] before step k
+      const double rcp = rcps[k];
+      // lane v of the segment takes column v's quotient (one pair of
+      // conversions a step for all TJ columns) and hands it out
+      float mine = 0.f;
+#pragma unroll
+      for (int v = 0; v < TJ; ++v) {
+        const float t = __shfl_sync(full, s[v], k, R);
+        if (a == v) mine = t;
+      }
+      const float qm = gj::quotient(mine, rcp);
+#pragma unroll
+      for (int v = 0; v < TJ; ++v) {
+        const float q = __shfl_sync(full, qm, v, R);
+        s[v] = a == k ? q : __fsub_rn(s[v], __fmul_rn(pc, q));
+      }
     }
-    if (has_right) {
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int row = j + r < R ? j + r : j + r - R;
-        if (row < r) out[row * ldo + col] = kDual ? X[j] : L[j];
-      }
+    for (int v = 0; v < TJ; ++v) {
+      const int j = g * TJ + v;
+      if (a < r && j < m) out[a * ldo + j] = s[v];
     }
   }
 }
 
-__device__ void ridge_solve(const float* aug, int lda, int r, int m, float lam,
-                            float* out, int ldo) {
-  if (r > 16)
-    warp_ridge_gj<kMaxRank, true>(aug, lda, r, m, lam, out, ldo);
+// TJ: the fewest columns a group that still give every product-side
+// segment at most one group, up to 16.
+template <int R>
+__device__ void solve_columns_by_width(const float* F, int ldF, const float* M, int ldM, int n,
+                                       int r, int m, const float* pcol, const double* rcps,
+                                       const unsigned* progress, unsigned base, float* out,
+                                       int ldo) {
+  const int slots = product_warps(blockDim.x >> 5) * (32 / R);
+  const int per = (m + slots - 1) / slots;
+  if (per <= 2)
+    solve_columns<R, 2>(F, ldF, M, ldM, n, r, m, pcol, rcps, progress, base, out, ldo);
+  else if (per <= 4)
+    solve_columns<R, 4>(F, ldF, M, ldM, n, r, m, pcol, rcps, progress, base, out, ldo);
+  else if (per <= 8)
+    solve_columns<R, 8>(F, ldF, M, ldM, n, r, m, pcol, rcps, progress, base, out, ldo);
   else
-    warp_ridge_gj<16, false>(aug, lda, r, m, lam, out, ldo);
+    solve_columns<R, 16>(F, ldF, M, ldM, n, r, m, pcol, rcps, progress, base, out, ldo);
+}
+
+// The two parts of a ridge solve, at the rank's lane count.
+__device__ void eliminate(int R, int r, float lam, float* pcol, double* rcps, unsigned* progress,
+                          unsigned base) {
+  if (R == 32)
+    eliminate_left<32>(r, lam, pcol, rcps, progress, base);
+  else
+    eliminate_left<16>(r, lam, pcol, rcps, progress, base);
+}
+
+__device__ void solve_right(int R, const float* F, int ldF, const float* M, int ldM, int n, int r,
+                            int m, const float* pcol, const double* rcps,
+                            const unsigned* progress, unsigned base, float* out, int ldo) {
+  if (R == 32)
+    solve_columns_by_width<32>(F, ldF, M, ldM, n, r, m, pcol, rcps, progress, base, out, ldo);
+  else
+    solve_columns_by_width<16>(F, ldF, M, ldM, n, r, m, pcol, rcps, progress, base, out, ldo);
 }
 
 // F[a][k] = strip_p[a][k - p w] for every column k, from the block p of the
@@ -266,7 +491,7 @@ __device__ void gather_factor(cg::cluster_group& cluster, float* F, int ldF,
   }
 }
 
-__global__ void __launch_bounds__(512, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 als_kernel(const float* __restrict__ W, const uint8_t* __restrict__ dmask,
            const float* __restrict__ A_in, int n, int r, float alpha, float beta,
            float mu0, float tol, int max_iter, int stable_iters,
@@ -275,25 +500,29 @@ als_kernel(const float* __restrict__ W, const uint8_t* __restrict__ dmask,
   extern __shared__ float4 smem_f4[];
   __shared__ double red[96];
   __shared__ double part[3];
+  __shared__ double tot[3];
+  __shared__ unsigned progress;  // elimination steps recorded, over all solves
   cg::cluster_group cluster = cg::this_cluster();
   const Shape sh = make_shape(n, r, static_cast<int>(cluster.num_blocks()));
-  const int S = sh.S, w = sh.w, ldS = sh.ldS, ldF = sh.ldF, lda = r + w;
+  const int S = sh.S, w = sh.w, ldS = sh.ldS, ldF = sh.ldF, R = sh.R;
   const int q = static_cast<int>(cluster.block_rank());
   const int c0 = q * w, wq = max(0, min(n, c0 + w) - c0);
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5;
   const int problem = blockIdx.x / S;
   W += static_cast<size_t>(problem) * n * n;
   x_bin += static_cast<size_t>(problem) * n * n;
   if (x_out != nullptr) x_out += static_cast<size_t>(problem) * n * n;
 
-  float* X = reinterpret_cast<float*>(smem_f4);  // current X, own strip
+  double* rcps = reinterpret_cast<double*>(smem_f4);  // R pivot reciprocals
+  float* pcol = reinterpret_cast<float*>(smem_f4) + 2 * R;  // R x R pivot columns
+  float* X = pcol + R * R;   // current X, own strip
   float* Xn = X + n * ldS;   // the X step (read by peers), then the next X
   float* Zb = Xn + n * ldS;  // Z; between the gathers, X step rows transposed
   float* Y = Zb + n * ldS;
   float* F = Y + n * ldS;    // full A^T or B^T (r x n)
   float* Bq = F + r * ldF;   // own B^T strip (r x w)
   float* Aq = Bq + r * w;    // own A^T strip (r x w)
-  float* aug = Aq + r * w;   // r x (r + w)
+  float* gram = Aq + r * w;  // this block's share of the Gram (E)
 
   if (wq > 0)
     for (Walk2 t(wq, tid, nt); t.i < n; t.next()) {
@@ -304,28 +533,54 @@ als_kernel(const float* __restrict__ W, const uint8_t* __restrict__ dmask,
       Y[e] = 0.f;
     }
   for (Walk2 t(r, tid, nt); t.i < n; t.next()) F[t.j * ldF + t.i] = A_in[t.i * r + t.j];
+  if (tid == 0) progress = 0;
   cluster.sync();  // every block of the cluster runs before any reads a peer
 
   const double tol_d = static_cast<double>(tol);
   float mu = mu0;
   int it = 0, stable = 0;
+  unsigned base = 0;  // the progress count at the start of the current solve
   bool done = false;
   while (it < max_iter && !done) {
     const float lam = __fdiv_rn(alpha, mu);
+    const double rmu = __drcp_rn(static_cast<double>(mu));
 
-    // ADMM X step on the own strip: Xn = Z - (Y - W + beta) / mu
-    if (wq > 0)
-      for (Walk2 t(wq, tid, nt); t.i < n; t.next()) {
-        const int i = t.i, j = c0 + t.j, e = i * ldS + t.j;
-        const float wv = __fmul_rn(0.5f, __fadd_rn(W[i * n + j], W[j * n + i]));
-        Xn[e] = __fsub_rn(Zb[e], __fdiv_rn(__fadd_rn(__fsub_rn(Y[e], wv), beta), mu));
-      }
-    __syncthreads();
-
-    // B^T strip = solve([A^T A + lam I | A^T X(:, strip)])
-    normal_block(F, ldF, Xn, ldS, n, r, wq, aug, lda);
-    __syncthreads();
-    ridge_solve(aug, lda, r, wq, lam, Bq, w);
+    // B^T strip = solve([A^T A + lam I | A^T Xs(:, strip)]); meanwhile the
+    // product side takes the ADMM X step on the own strip, Xs = Z - (Y - W +
+    // beta) / mu, forms the right-hand products and applies the steps
+    const bool elim_side = eliminating_side(warp);
+    if (elim_side) gram_share(F, ldF, n, r, q, S, sh.E, gram);
+    cluster_arrive();
+    if (!elim_side) {
+      const int np = product_warps(nt >> 5) * 32;
+      if (wq > 0)
+        for (Walk2 t(wq, product_warp(warp) * 32 + (tid & 31), np); t.i < n;) {
+          // four entries a pass, their eight loads of W in flight together
+          int e[4];
+          float wa[4], wb[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int i = min(t.i, n - 1), j = c0 + t.j;
+            e[u] = t.i < n ? i * ldS + t.j : -1;
+            wa[u] = W[i * n + j];
+            wb[u] = W[j * n + i];
+            t.next();
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (e[u] < 0) continue;
+            const float wv = __fmul_rn(0.5f, __fadd_rn(wa[u], wb[u]));
+            Xn[e[u]] = __fsub_rn(Zb[e[u]],
+                                 gj::quotient(__fadd_rn(__fsub_rn(Y[e[u]], wv), beta), rmu));
+          }
+        }
+      product_warps_sync();
+      solve_right(R, F, ldF, Xn, ldS, n, r, wq, pcol, rcps, &progress, base, Bq, w);
+    }
+    cluster_wait();
+    if (elim_side) gather_gram(gram, S, r, R, pcol);
+    if (warp == 0) eliminate(R, r, lam, pcol, rcps, &progress, base);
+    base += r;
     cluster.sync();
 
     // gather B^T, and the X step's rows of the own row strip, transposed
@@ -338,10 +593,14 @@ als_kernel(const float* __restrict__ W, const uint8_t* __restrict__ dmask,
     }
     __syncthreads();
 
-    // A^T strip = solve([B^T B + lam I | B^T X(strip, :)^T])
-    normal_block(F, ldF, Zb, ldS, n, r, wq, aug, lda);
-    __syncthreads();
-    ridge_solve(aug, lda, r, wq, lam, Aq, w);
+    // A^T strip = solve([B^T B + lam I | B^T Xs(strip, :)^T])
+    if (elim_side) gram_share(F, ldF, n, r, q, S, sh.E, gram);
+    cluster_arrive();
+    if (!elim_side) solve_right(R, F, ldF, Zb, ldS, n, r, wq, pcol, rcps, &progress, base, Aq, w);
+    cluster_wait();
+    if (elim_side) gather_gram(gram, S, r, R, pcol);
+    if (warp == 0) eliminate(R, r, lam, pcol, rcps, &progress, base);
+    base += r;
     cluster.sync();
 
     // gather A^T
@@ -358,7 +617,7 @@ als_kernel(const float* __restrict__ W, const uint8_t* __restrict__ dmask,
           const int j = c0 + jl, e = i * ldS + jl;
           const float y0 = Y[e];
           const float zc =
-              (i == j) ? 1.f : (dmask[i * n + j] ? 0.f : __fadd_rn(x, __fdiv_rn(y0, mu)));
+              (i == j) ? 1.f : (dmask[i * n + j] ? 0.f : __fadd_rn(x, gj::quotient(y0, rmu)));
           const float z = fminf(fmaxf(zc, 0.f), 1.f);
           const float x0 = X[e];
           const float dz = __fsub_rn(x, z);
@@ -394,14 +653,26 @@ als_kernel(const float* __restrict__ W, const uint8_t* __restrict__ dmask,
       part[2] = c;
     }
     cluster.sync();
-    // the cluster's totals, summed in block order by every thread
-    double t_pz = 0.0, t_dx = 0.0, t_flip = 0.0;
-    for (int p = 0; p < S; ++p) {
-      const double* pp = cluster.map_shared_rank(part, p);
-      t_pz += pp[0];
-      t_dx += pp[1];
-      t_flip += pp[2];
+    // the cluster's totals, summed in block order by warp 0 (lane p reads
+    // block p's partials) and handed to the block
+    if (warp == 0) {
+      double v[3] = {0.0, 0.0, 0.0};
+      if ((tid & 31) < S) {
+        const double* pp = cluster.map_shared_rank(part, tid & 31);
+        v[0] = pp[0];
+        v[1] = pp[1];
+        v[2] = pp[2];
+      }
+      double t3[3] = {0.0, 0.0, 0.0};
+      for (int p = 0; p < S; ++p)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) t3[c] += __shfl_sync(full, v[c], p);
+      if (tid == 0)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) tot[c] = t3[c];
     }
+    __syncthreads();
+    const double t_pz = tot[0], t_dx = tot[1], t_flip = tot[2];
     const double p_res = sqrt(t_pz) / n;
     const double d_res = static_cast<double>(mu) * sqrt(t_dx) / n;
     done = (p_res < tol_d) && (d_res < tol_d);
@@ -448,7 +719,7 @@ cudaError_t configure(const Shape& s, int problems, cudaStream_t stream,
   }
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(static_cast<unsigned>(problems * s.S));
-  cfg->blockDim = dim3(static_cast<unsigned>(s.threads));
+  cfg->blockDim = dim3(static_cast<unsigned>(kThreads));
   cfg->dynamicSmemBytes = bytes;
   cfg->stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -476,7 +747,7 @@ extern "C" int als_launch_shape(int n, int r, void* out) {
   if (err != cudaSuccess) return static_cast<int>(err);
   int* o = static_cast<int*>(out);
   o[0] = s.S;
-  o[1] = s.threads;
+  o[1] = kThreads;
   o[2] = static_cast<int>(s.floats * sizeof(float));
   o[3] = clusters;
   return 0;

@@ -9,10 +9,17 @@ CUDA events (median over rounds of the mean of back-to-back launches):
 
 - `b1_frame0`: one SHELF_BENCH problem (N = 38, rank 16), the spatial-only
   similarity of the first frame of the 5-camera synthetic scene;
+- `b1_default`: the default preset's problem on that frame (N = 66, rank
+  32, one block, to its own count under the 1,000-iteration cap);
 - `b3_wide64`: the two camera clusters of `PipelineConfig.wide(64)` (N =
-  336, rank 32) on the first frame of the 64-camera scene.
+  336, rank 32) on the first frame of the 64-camera scene;
+- `b1_n336`: the first of those two problems alone (B1 as one cluster of
+  16 blocks, the benchmark's `rig32` shape);
+- `b3_rig128`: the four camera clusters of `PipelineConfig.wide(128,
+  assoc_clusters=4)` (N = 336, rank 32) on the first frame of the
+  128-camera scene (the benchmark's `dome128` shape).
 
-Both run the ALS to its stop test or its 100-iteration cap.  It prints one
+Each runs the ALS to its stop test or its configuration's cap.  It prints one
 JSON line: the card's `nvidia-smi` name and power limit, and per case the
 ms per launch, the iteration counts, the ms per iteration of the longest
 problem and a digest of x_bin (equal across checkouts whose kernels are
@@ -68,6 +75,26 @@ def _frame0_problems(torch, cfg, n_views: int, n_people: int, **scene):
     return W, ctx.cluster_diag_mask, ctx.cluster_init_A
 
 
+def case_problems(torch, case: str):
+    """(cfg, W, mask, init) of a named case; W is (C, N, N) for B3 and (N, N)
+    for B1."""
+    from multiview_motion_capture_torch.config import SHELF_BENCH, PipelineConfig
+
+    if case == "b1_frame0":
+        return (SHELF_BENCH, *_frame0_problems(torch, SHELF_BENCH, 5, 4))
+    if case == "b1_default":
+        cfg = PipelineConfig(n_views=5, max_frames=None)
+        return (cfg, *_frame0_problems(torch, cfg, 5, 4))
+    if case in ("b3_wide64", "b1_n336"):
+        cfg = PipelineConfig.wide(64, max_frames=None)
+        W, mask, init = _frame0_problems(torch, cfg, 64, 10, noise_px=1.0, drop_prob=0.05)
+        return (cfg, W[0].contiguous() if case == "b1_n336" else W, mask, init)
+    if case == "b3_rig128":
+        cfg = PipelineConfig.wide(128, assoc_clusters=4, max_frames=None)
+        return (cfg, *_frame0_problems(torch, cfg, 128, 10, noise_px=1.0, drop_prob=0.05))
+    raise SystemExit(f"unknown case {case}")
+
+
 def _als_args(cfg) -> dict:
     """The ALS settings the tracker passes (tracker._run_als)."""
     return dict(alpha=cfg.als_alpha, beta=cfg.als_beta, mu0=cfg.als_mu, tol=cfg.als_tol,
@@ -88,7 +115,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_als_timing: needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    from multiview_motion_capture_torch.config import SHELF_BENCH, PipelineConfig
     from multiview_motion_capture_torch.ops import als_kernel, cuda_lib
 
     cuda_lib.build_all()
@@ -96,20 +122,12 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     out = {"root": args.root, "nvidia_smi": smi.splitlines()[0], "cases": {}}
     for case in args.cases.split(","):
-        if case == "b1_frame0":
-            cfg = SHELF_BENCH
-            W, mask, init = _frame0_problems(torch, cfg, 5, 4)
+        cfg, W, mask, init = case_problems(torch, case)
+        solve = als_kernel.match_als if W.dim() == 2 else als_kernel.match_als_batched
 
-            def call():
-                return als_kernel.match_als(W, mask, init, **_als_args(cfg))
-        elif case == "b3_wide64":
-            cfg = PipelineConfig.wide(64, max_frames=None)
-            W, mask, init = _frame0_problems(torch, cfg, 64, 10, noise_px=1.0, drop_prob=0.05)
+        def call():
+            return solve(W, mask, init, **_als_args(cfg))
 
-            def call():
-                return als_kernel.match_als_batched(W, mask, init, **_als_args(cfg))
-        else:
-            raise SystemExit(f"unknown case {case}")
         res = call()
         iters = [int(i) for i in res.n_iters.reshape(-1).tolist()]
         ms = _time_ms(torch, call, args.reps, args.rounds)

@@ -141,6 +141,81 @@ def test_column_strips_equal_the_whole_solve_and_product(rank, width):
     assert torch.equal(torch.cat(prods, 1), aug[:, rank:])
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _dealt_gram(F, S):
+    """The Gram F F^T as the cluster kernel forms it: entry t = b (b + 1) / 2
+    + a (a <= b) of the upper triangle summed in index order by block t mod S
+    (slot t // S), then every block reads all shares and mirrors them."""
+    r, n = F.shape
+    b, a = zip(*[(b, a) for b in range(r) for a in range(b + 1)])
+    a, b = torch.tensor(a), torch.tensor(b)
+    prods = F[a] * F[b]                       # (entries, n), one rounding each
+    s = prods[:, 0]
+    for k in range(1, n):
+        s = s + prods[:, k]
+    shares = [s[q::S] for q in range(S)]      # block q: entries q, q + S, ...
+    t = torch.arange(len(s))
+    tri = torch.stack([shares[int(q)][int(u)] for q, u in zip(t % S, t // S)])
+    G = torch.empty(r, r, dtype=F.dtype)
+    G[a, b] = tri
+    G[b, a] = tri
+    return G
+
+
+def _recorded_ridge_solve(G, R, lam):
+    """The ridge solve as the kernel splits it: one warp eliminates the left
+    block G + lam I alone, recording each step's pivot column as it stood
+    before the step and the pivot's correctly rounded double reciprocal;
+    the right-hand columns R then take the recorded steps.  Every quotient
+    is the double product with that reciprocal rounded once to float
+    (gj_elim.cuh's `quotient`)."""
+    r = G.shape[0]
+    idx = torch.arange(r)
+    L = G.clone()
+    L[idx, idx] = L[idx, idx] + lam
+    steps = []
+    for k in range(r):
+        col = L[:, k].clone()
+        rcp = 1.0 / col[k].double()
+        row = (L[k].double() * rcp).float()
+        L = L - col[:, None] * row[None, :]
+        L[k] = row
+        steps.append((col, rcp))
+    X = R.clone()
+    for k, (col, rcp) in enumerate(steps):
+        row = (X[k].double() * rcp).float()
+        X = X - col[:, None] * row[None, :]
+        X[k] = row
+    return X
+
+
+@pytest.mark.parametrize("part", ["dealt_gram", "recorded_ridge_solve"])
+@pytest.mark.parametrize("rank", [16, 24, 32])
+def test_cluster_split_equals_the_whole(rank, part):
+    """The invariants of the kernel's split of a ridge solve, at the cluster
+    shape's 16 blocks: the Gram's upper triangle dealt over the blocks and
+    mirrored equals the whole ordered product, and the left block's
+    recorded elimination applied to the right-hand columns (quotients by
+    the double reciprocal) equals the whole Gauss-Jordan, bit for bit."""
+    rng = np.random.RandomState(100 + rank)
+    n, m = 80, 21
+    F = torch.as_tensor(rng.rand(rank, n).astype(np.float32))
+    G = TA._ordered_matmul(F, F.T)
+    if part == "dealt_gram":
+        assert torch.equal(_bits(_dealt_gram(F, 16)), _bits(G))
+        return
+    M = torch.as_tensor(rng.randn(n, m).astype(np.float32))
+    M[:, 3] = 0.0                              # zero numerators at every step
+    Rhs = TA._ordered_matmul(F, M)
+    for mu in (64.0, 0.5):
+        lam = float(np.float32(50.0) / np.float32(mu))
+        whole = TA._ridge_gauss_jordan(torch.cat([G, Rhs], 1), lam)
+        assert torch.equal(_bits(_recorded_ridge_solve(G, Rhs, lam)), _bits(whole))
+
+
 def test_block_diag_mask_and_init_factor_match_jax():
     sizes = (8, 6, 6, 6, 6, 6)
     np.testing.assert_array_equal(TA.block_diag_mask(sizes), JA.block_diag_mask(sizes))

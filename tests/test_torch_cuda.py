@@ -126,6 +126,43 @@ def test_als_kernel_at_max_n(cuda):
     _assert_batched_equals_plain_and_solo(W, mask, init, max_iter=30, stable_iters=10)
 
 
+@pytest.mark.parametrize("rank", [16, 24, 32])
+@pytest.mark.parametrize("where", ["above_switch", "max_n"])
+def test_als_cluster_shape_at_each_rank(cuda, rank, where):
+    """The 16-block cluster at each width of its split ridge solve (rank 16:
+    two right-hand columns a warp; 24: padded rows and columns; 32): the
+    first n a cluster solves and MAX_N."""
+    n = _largest_one_block_n(rank) + 1 if where == "above_switch" else als_kernel.MAX_N
+    assert als_kernel.launch_shape(n, rank).cluster == 16
+    sizes = (16,) + (8,) * ((n - 16) // 8) + (((n - 16) % 8,) if (n - 16) % 8 else ())
+    W, mask, init = _als_inputs(cuda, sizes, rank, 1, seed=11 + rank)
+    k = als_kernel.match_als(W[0], mask, init, max_iter=30, stable_iters=10)
+    p = association.match_als(W[0], mask, init, max_iter=30, stable_iters=10)
+    assert torch.equal(k.x_bin, p.x_bin) and int(k.n_iters) == int(p.n_iters)
+
+
+def test_als_batched_problems_stop_apart(cuda):
+    """B3 at C 4 on the cluster shape (N 116, rank 32), on problems from
+    well separated to noise, which stop at different iterations: each
+    equals the plain version and B1 alone."""
+    import chip_smoke  # beside tests/; on sys.path under `python -m pytest`
+
+    sizes = (16,) + (10,) * 10
+    n = sum(sizes)
+    rng = np.random.RandomState(9)
+    Ws = []
+    for c, noise in enumerate((0.0, 0.3, 0.6, 1.0)):
+        R = rng.rand(n, n).astype(np.float32) * 0.2
+        clean = chip_smoke.als_problem(20 + c, sizes, n_people=16)
+        Ws.append(((1 - noise) * clean + noise * 0.5 * (R + R.T)).astype(np.float32))
+    W = torch.as_tensor(np.stack(Ws), device=cuda).contiguous()
+    mask = torch.as_tensor(association.block_diag_mask(sizes), device=cuda)
+    init = torch.as_tensor(association.default_init_factor(n, 32), device=cuda)
+    assert als_kernel.launch_shape(n, 32).cluster == 16
+    k = _assert_batched_equals_plain_and_solo(W, mask, init, max_iter=60, stable_iters=10)
+    assert len(set(k.n_iters.tolist())) >= 3
+
+
 def test_als_batched_wide_rig_frame0_to_the_cap(cuda):
     """The wide rig's own problems (PipelineConfig.wide(64): two clusters of
     N = 336, rank 32) on its scene's first frame, whose ALS runs to the

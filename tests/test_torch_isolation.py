@@ -254,7 +254,7 @@ def test_cuda_sources_exist_and_are_named_by_the_build_helper():
     assert len({k.name for k in cuda_lib.ALL_KERNELS}) == len(cuda_lib.ALL_KERNELS) == 5
     assert cuda_lib.ALS.library is cuda_lib.ALS_BATCHED.library is cuda_lib.ALS_LIB
     assert cuda_lib.GJ_SOLVE.library is cuda_lib.GJ_SOLVE_GRID.library is cuda_lib.GJ_LIB
-    assert [f.name for f in cuda_lib.ALS_LIB.source_files()] == ["als.cu"]
+    assert [f.name for f in cuda_lib.ALS_LIB.source_files()] == ["als.cu", "gj_elim.cuh"]
     assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
     assert cuda_lib.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
 
